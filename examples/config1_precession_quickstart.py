@@ -34,4 +34,7 @@ def main(true_omega=0.512, n_exp=100, seed=0):
 
 
 if __name__ == "__main__":
+    from qinfer_tpu._platform import enable_compile_cache
+
+    enable_compile_cache()
     main()

@@ -21,4 +21,7 @@ def main(true_omega=0.62, n_shots=40, n_exp=25, seed=0):
 
 
 if __name__ == "__main__":
+    from qinfer_tpu._platform import enable_compile_cache
+
+    enable_compile_cache()
     main()

@@ -24,4 +24,7 @@ def main(true_p=0.97, A=0.45, B=0.5, n_shots=300, seed=0):
 
 
 if __name__ == "__main__":
+    from qinfer_tpu._platform import enable_compile_cache
+
+    enable_compile_cache()
     main()

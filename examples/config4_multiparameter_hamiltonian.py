@@ -48,5 +48,8 @@ def known_t2(seed=0, n_exp=100, t2=100.0):
 
 
 if __name__ == "__main__":
+    from qinfer_tpu._platform import enable_compile_cache
+
+    enable_compile_cache()
     known_t2()
     multicos()

@@ -124,6 +124,9 @@ def main_sharded(seed=0, n_exp=160, n_devices=None):
 
 
 if __name__ == "__main__":
+    from qinfer_tpu._platform import enable_compile_cache
+
+    enable_compile_cache()
     import sys as _sys
 
     if "--sharded" in _sys.argv:

@@ -1,11 +1,10 @@
-"""qinfer_tpu — a TPU-native sequential-Monte-Carlo Bayesian inference engine.
+"""qinfer_tpu — a JAX sequential-Monte-Carlo Bayesian inference engine.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of
+A from-scratch JAX/XLA framework with the capabilities of
 QInfer/python-qinfer (Bayesian parameter estimation for quantum information:
-Hamiltonian learning, randomized benchmarking, tomography), redesigned
-TPU-first: log-space particle filtering under jit, scan-driven episodes,
-GSPMD sharding of the particle bank over device meshes, and fused Pallas
-kernels for the likelihood hot loop.
+Hamiltonian learning, randomized benchmarking, tomography), redesigned for
+accelerators: log-space particle filtering under jit, scan-driven episodes,
+and GSPMD sharding of the particle bank over device meshes.
 """
 
 from .version import __version__

@@ -1,4 +1,4 @@
-"""Prior/sampling distributions (TPU-native analogue of qinfer's distributions.py).
+"""Prior/sampling distributions (JAX analogue of qinfer's distributions.py).
 
 Reference parity: ``src/qinfer/distributions.py`` — ``Distribution``,
 ``UniformDistribution``, ``MultivariateNormalDistribution``,

@@ -1,4 +1,4 @@
-"""Outcome domains (TPU-native analogue of qinfer's domains.py).
+"""Outcome domains (JAX analogue of qinfer's domains.py).
 
 Reference parity: ``src/qinfer/domains.py`` — ``Domain``, ``RealDomain``,
 ``IntegerDomain``, ``MultinomialDomain``.
@@ -176,7 +176,7 @@ class MultinomialDomain(Domain):
     def to_regular_array(self, a):
         """Identity passthrough — outcomes are already plain int arrays.
 
-        The reference converts NumPy record arrays; the TPU build uses plain
+        The reference converts NumPy record arrays; this package uses plain
         (..., k) int arrays natively, so this exists for API familiarity.
         """
         return jnp.asarray(a)

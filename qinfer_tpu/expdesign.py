@@ -1,11 +1,11 @@
-"""Optimal experiment design (TPU-native analogue of qinfer's expdesign.py).
+"""Optimal experiment design (JAX analogue of qinfer's expdesign.py).
 
 Reference parity: ``src/qinfer/expdesign.py`` — ``ExperimentDesigner``
 (``design_expparams_field`` minimizing cost·k + bayes_risk over one
 expparams field via scipy.optimize), ``OptimizationAlgorithms`` enum
 (call stack SURVEY §3.3).
 
-TPU improvement over the reference: the objective's gradient is exact —
+Improvement over the reference: the objective's gradient is exact —
 ``jax.grad`` differentiates straight through the hypothetical-update risk
 (the reference used ``FiniteDifference``). The local optimizer remains
 scipy CG/NCG on the host (the design loop is latency-bound, not

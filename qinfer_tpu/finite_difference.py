@@ -3,7 +3,7 @@
 Reference parity: ``src/qinfer/finite_difference.py`` — ``FiniteDifference``
 (central differences over the arguments of a scalar function).
 
-Kept for API parity; prefer ``jax.grad``, which the TPU build uses
+Kept for API parity; prefer ``jax.grad``, which this package uses
 everywhere derivatives matter (expdesign, score).
 """
 

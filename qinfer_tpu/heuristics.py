@@ -1,4 +1,4 @@
-"""Experiment-design heuristics (TPU-native analogue of qinfer's heuristics.py).
+"""Experiment-design heuristics (JAX analogue of qinfer's heuristics.py).
 
 Reference parity: ``src/qinfer/heuristics.py`` — ``Heuristic`` (ABC),
 ``ExpSparseHeuristic`` (t_k = a·bᵏ), ``PGH`` (particle-guess heuristic).
@@ -206,7 +206,7 @@ def _thaw_candidates(frozen):
 class _UtilityGreedyCore:
     """Greedy candidate selection by a device-side utility (EIG or −risk).
 
-    TPU-native upgrade with no reference equivalent as a *heuristic*: the
+    Upgrade with no reference equivalent as a *heuristic*: the
     reference computes EIG/risk host-side per round; here the whole
     score-candidates → argmax → emit-experiment step is pure and runs
     inside jitted episode scans. The candidate set is static (baked into

@@ -1,16 +1,14 @@
-"""Kernel-accelerated models (TPU-native analogue of qinfer's gpu_models.py).
+"""Reference-named precession model (JAX analogue of qinfer's gpu_models.py).
 
 Reference parity: ``src/qinfer/gpu_models.py — AcceleratedPrecessionModel``
 (the reference's only native code: an embedded OpenCL C kernel computing
 the per-particle cos² likelihood, with a PyOpenCL host wrapper marshaling
 float32 buffers).
 
-Here the same role is played by the *general* fused-update Pallas kernel
-(``ops.fused_update``): any elementwise model supplies a tile function.
-Since round 2 the fused path lives on ``SimplePrecessionModel.fused_update``
-itself and the SMC engine routes through it by default on TPU (measured
-0.024 ms vs 0.22 ms XLA at 2^20 particles — ~roofline).
-``AcceleratedPrecessionModel`` remains as the reference-named alias.
+Here the engine's XLA update already fuses the elementwise cos²
+likelihood into the update's reductions for every model, so no separate
+kernel exists: ``AcceleratedPrecessionModel`` is ``SimplePrecessionModel``
+under the reference's name.
 """
 
 from __future__ import annotations
@@ -27,8 +25,7 @@ __all__ = ["AcceleratedPrecessionModel"]
 @jax.tree_util.register_static
 @dataclass(frozen=True, eq=False)
 class AcceleratedPrecessionModel(SimplePrecessionModel):
-    """SimplePrecessionModel with a fused Pallas update path (inherited —
-    every SimplePrecessionModel update is fused on TPU now).
+    """``SimplePrecessionModel`` under the reference's name.
 
     Reference: ``gpu_models.py — AcceleratedPrecessionModel``.
     """

@@ -1,11 +1,11 @@
-"""Adaptive likelihood estimation (TPU-native analogue of qinfer's ale.py).
+"""Adaptive likelihood estimation (JAX analogue of qinfer's ale.py).
 
 Reference parity: ``src/qinfer/ale.py`` — ``ALEApproximateModel`` (wraps a
 ``Simulatable`` lacking an explicit likelihood; estimates Pr(outcome) by
 repeated simulation with a hedged beta estimator until an error tolerance
 is met), ``binom_est_p``, ``binom_est_error``.
 
-TPU design: the reference's grow-until-tolerance host loop becomes a
+Design: the reference's grow-until-tolerance host loop becomes a
 bounded ``lax.while_loop`` adding fixed-size simulation batches on device;
 all (outcome × particle × experiment) cells are estimated simultaneously,
 stopping when the *worst-case* standard error is below tolerance or the

@@ -1,4 +1,4 @@
-"""Model DSL (TPU-native analogue of qinfer's abstract_model.py).
+"""Model DSL (JAX analogue of qinfer's abstract_model.py).
 
 Reference parity: ``src/qinfer/abstract_model.py`` — ``Simulatable``,
 ``Model``, ``FiniteOutcomeModel``, ``DifferentiableModel``.
@@ -18,8 +18,8 @@ GSPMD. Key contracts preserved from the reference:
   plain array (single-field models) or a dict {field: array[E, ...]}.
 - ``n_outcomes``/``domain``/``update_timestep``/``clear_cache``.
 
-New in the TPU build: ``log_likelihood`` is the primitive (log-space weights
-are required for f32 stability on TPU); ``likelihood`` is derived. Models
+New in this package: ``log_likelihood`` is the primitive (log-space weights
+are required for f32 stability); ``likelihood`` is derived. Models
 with a closed-form two-outcome probability implement ``pr0`` (or
 ``log_pr0``) and get the rest for free.
 
@@ -199,7 +199,7 @@ class Model(Simulatable):
     def log_likelihood(self, outcomes, modelparams, expparams) -> jnp.ndarray:
         """log Pr(outcome | modelparams; expparams), shape (O, N, E).
 
-        The TPU-native primitive. Default falls back to log(likelihood).
+        The primitive. Default falls back to log(likelihood).
         """
         return jnp.log(
             jnp.clip(self.likelihood(outcomes, modelparams, expparams), 1e-38)
@@ -263,78 +263,6 @@ class FiniteOutcomeModel(Model):
             )
         raise NotImplementedError(
             "Models with >2 outcomes must override log_likelihood."
-        )
-
-    # -- fused single-pass update (TPU) -----------------------------------
-
-    def _fused_pr1_parts(self, modelparams, expparams):
-        """Optional fused-kernel spec: (pr1_fn, scalars_tail, param_cols)
-        with ``pr1_fn(scal_ref, scal_offset, *tiles) -> Pr(1) tile``.
-
-        Models that override this get the single-pass Pallas Bayes update
-        (likelihood + weight update + streaming evidence/ESS) routed
-        automatically by the SMC engine on TPU — the general mechanism
-        replacing the reference's hard-coded OpenCL kernel
-        (``gpu_models.py — AcceleratedPrecessionModel``)."""
-        return None
-
-    @property
-    def fused_update_supported(self):
-        cls = type(self)
-        if cls._fused_pr1_parts is FiniteOutcomeModel._fused_pr1_parts:
-            return False
-        # A subclass that overrides the likelihood (via pr0 or
-        # log_likelihood) but *inherits* _fused_pr1_parts would silently
-        # run the ancestor's fused tile as the engine default — only
-        # accept an inherited fused spec when the likelihood is inherited
-        # from no deeper than the class that defined the spec.
-        mro = cls.__mro__
-
-        def _definer_idx(name):
-            for i, c in enumerate(mro):
-                if name in vars(c):
-                    return i
-            return len(mro)
-
-        fused_idx = _definer_idx("_fused_pr1_parts")
-        return fused_idx <= min(
-            _definer_idx("pr0"), _definer_idx("log_likelihood")
-        )
-
-    def fused_update(self, outcome, log_w, modelparams, expparams,
-                     interpret=None, return_stats=False):
-        """(log_w', log_norm, ess) in one fused Pallas pass (E must be 1);
-        equality with the XLA path is tested in tests/test_pallas_ops.py.
-
-        ``return_stats=True`` returns the raw per-shard
-        (log_w_unnormalized, lse, lse2) for psum-merging under shard_map
-        (see ``ops.fused_update.fused_bayes_update``).
-
-        Vmappable: ``fused_bayes_update`` carries a custom_vmap rule —
-        big per-trial banks lax.map the kernel over the batch, small
-        banks take the exact-math vectorized XLA equivalent (ensemble
-        harnesses keep the engine defaults).
-        """
-        from ..ops.fused_update import fused_bayes_update, two_outcome_tile
-
-        if _n_exps(expparams) != 1:
-            raise ValueError(
-                "fused_update handles exactly one experiment (E == 1); got "
-                f"E == {_n_exps(expparams)}. Batch experiments through "
-                "batch_update / lax.scan instead."
-            )
-        parts = self._fused_pr1_parts(modelparams, expparams)
-        if parts is None:
-            raise NotImplementedError(
-                "model does not define _fused_pr1_parts"
-            )
-        pr1_fn, tail, cols = parts
-        scalars = jnp.concatenate(
-            [jnp.asarray(outcome, jnp.float32).reshape(1), tail]
-        )
-        return fused_bayes_update(
-            two_outcome_tile(pr1_fn), scalars, log_w, cols,
-            interpret=interpret, return_stats=return_stats,
         )
 
     def n_outcomes(self, expparams: ExpParams = None) -> int:

@@ -1,4 +1,4 @@
-"""Model combinators (TPU-native analogue of qinfer's derived_models.py).
+"""Model combinators (JAX analogue of qinfer's derived_models.py).
 
 Reference parity: ``src/qinfer/derived_models.py`` — ``DerivedModel``,
 ``BinomialModel``, ``DifferentiableBinomialModel``, ``MultinomialModel``,
@@ -8,7 +8,7 @@ Reference parity: ``src/qinfer/derived_models.py`` — ``DerivedModel``,
 Combinators are frozen dataclasses wrapping an underlying model; all
 likelihood math stays log-space and vectorized. Where the reference's
 combinators consume global NumPy RNG state (PoisonedModel's noise,
-RandomWalkModel's diffusion), the TPU build uses explicit keys
+RandomWalkModel's diffusion), this package uses explicit keys
 (``update_timestep(params, exps, key=...)``) or deterministic key folding,
 keeping every method pure/jittable.
 """
@@ -135,43 +135,6 @@ class BinomialModel(DerivedModel):
         k = jnp.asarray(outcomes, jnp.float32).reshape(-1)  # (O,)
         return log_binomial_pdf(
             n_meas[None, None, :], k[:, None, None], p1[None, :, :]
-        )
-
-    @property
-    def fused_update_supported(self):
-        return getattr(
-            self.underlying_model, "fused_update_supported", False
-        )
-
-    def fused_update(self, outcome, log_w, modelparams, expparams,
-                     interpret=None, return_stats=False):
-        """Fused binomial update: the underlying two-outcome model's pr1
-        tile + the in-kernel binomial log-pmf (coefficient precomputed in
-        XLA). Equality-tested against the XLA path."""
-        from jax.scipy.special import gammaln
-
-        from ..models.base import _n_exps
-        from ..ops.fused_update import binomial_tile, fused_bayes_update
-
-        if _n_exps(expparams) != 1:
-            raise ValueError(
-                "fused_update handles exactly one experiment (E == 1); "
-                f"got E == {_n_exps(expparams)}."
-            )
-        pr1_fn, tail, cols = self.underlying_model._fused_pr1_parts(
-            modelparams, expparams
-        )
-        n = jnp.asarray(
-            expparams_field(expparams, "n_meas"), jnp.float32
-        ).reshape(-1)[0]
-        k = jnp.asarray(outcome, jnp.float32).reshape(())
-        log_c = gammaln(n + 1.0) - gammaln(k + 1.0) - gammaln(n - k + 1.0)
-        scalars = jnp.concatenate(
-            [jnp.stack([k, n, log_c]), tail]
-        )
-        return fused_bayes_update(
-            binomial_tile(pr1_fn), scalars, log_w, cols,
-            interpret=interpret, return_stats=return_stats,
         )
 
     def simulate_experiment(self, key, modelparams, expparams, repeat=1):

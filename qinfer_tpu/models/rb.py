@@ -1,4 +1,4 @@
-"""Randomized benchmarking (TPU-native analogue of qinfer's rb.py).
+"""Randomized benchmarking (JAX analogue of qinfer's rb.py).
 
 Reference parity: ``src/qinfer/rb.py`` — ``RandomizedBenchmarkingModel``
 (params p, A, B; survival probability A·pᵐ + B; ``interleaved=True``
@@ -119,20 +119,3 @@ class RandomizedBenchmarkingModel(FiniteOutcomeModel):
             m[None, :] * jnp.log(jnp.clip(decay, 1e-38, 1.0))
         )
         return jnp.clip(A[:, None] * pm + B[:, None], 0.0, 1.0)
-
-    def _fused_pr1_parts(self, modelparams, expparams):
-        m = jnp.asarray(
-            expparams_field(expparams, "m"), jnp.float32
-        ).reshape(-1)[:1]
-        if self.interleaved:
-            from ..ops.fused_update import rb_interleaved_pr1
-
-            ref = jnp.asarray(
-                expparams_field(expparams, "reference"), jnp.float32
-            ).reshape(-1)[:1]
-            cols = tuple(modelparams[:, i] for i in range(4))
-            return rb_interleaved_pr1, jnp.concatenate([m, ref]), cols
-        from ..ops.fused_update import rb_pr1
-
-        cols = (modelparams[:, 0], modelparams[:, 1], modelparams[:, 2])
-        return rb_pr1, m, cols

@@ -1,13 +1,12 @@
-"""Concrete example models (TPU-native analogue of qinfer's test_models.py).
+"""Concrete example models (JAX analogue of qinfer's test_models.py).
 
 Reference parity: ``src/qinfer/test_models.py`` — ``SimplePrecessionModel``,
 ``SimpleInversionModel``, ``CoinModel``, ``NoisyCoinModel``, ``NDieModel``,
 ``MultiCosModel`` (the last two marked [unverified] in SURVEY.md §2.7).
 Plus ``KnownT2PrecessionModel`` for BASELINE config 4 (known-T2 precession).
 
-All likelihoods are elementwise jnp expressions over (N, E) broadcasts —
-XLA fuses them into a handful of VPU ops; at 1M particles they are purely
-HBM-bandwidth-bound, which the fused Pallas path (ops/) exploits further.
+All likelihoods are elementwise jnp expressions over (N, E) broadcasts,
+which XLA fuses into the update's reductions.
 """
 
 from __future__ import annotations
@@ -66,18 +65,6 @@ class SimplePrecessionModel(FiniteOutcomeModel):
         arg = 0.5 * omega[:, None] * t[None, :]
         return jnp.cos(arg) ** 2
 
-    def _fused_pr1_parts(self, modelparams, expparams):
-        """Fused single-pass update spec (engine default on TPU).
-        Reference: ``gpu_models.py — AcceleratedPrecessionModel`` (the
-        reference's embedded OpenCL kernel computes the same per-particle
-        cos² likelihood)."""
-        from ..ops.fused_update import precession_pr1
-
-        t = jnp.asarray(
-            expparams_field(expparams, "t"), jnp.float32
-        ).reshape(-1)[:1]
-        return precession_pr1, t, (modelparams[:, 0],)
-
 
 @jax.tree_util.register_static
 @dataclass(frozen=True, eq=False)
@@ -113,17 +100,6 @@ class SimpleInversionModel(FiniteOutcomeModel):
         omega = modelparams[:, 0]
         arg = 0.5 * (omega[:, None] - w_[None, :]) * t[None, :]
         return jnp.cos(arg) ** 2
-
-    def _fused_pr1_parts(self, modelparams, expparams):
-        from ..ops.fused_update import inversion_pr1
-
-        w_ = jnp.asarray(
-            expparams_field(expparams, "w_"), jnp.float32
-        ).reshape(-1)[:1]
-        t = jnp.asarray(
-            expparams_field(expparams, "t"), jnp.float32
-        ).reshape(-1)[:1]
-        return inversion_pr1, jnp.concatenate([w_, t]), (modelparams[:, 0],)
 
 
 @jax.tree_util.register_static
@@ -164,11 +140,6 @@ class CoinModel(FiniteOutcomeModel):
             (1.0 - p)[:, None], (p.shape[0], n_exp)
         )
 
-    def _fused_pr1_parts(self, modelparams, expparams):
-        from ..ops.fused_update import coin_pr1
-
-        return coin_pr1, jnp.zeros((0,), jnp.float32), (modelparams[:, 0],)
-
 
 @jax.tree_util.register_static
 @dataclass(frozen=True, eq=False)
@@ -204,18 +175,6 @@ class NoisyCoinModel(FiniteOutcomeModel):
         beta = jnp.asarray(expparams_field(expparams, "beta"), jnp.float32).reshape(-1)
         p = modelparams[:, 0]
         return alpha[None, :] * (1.0 - p[:, None]) + beta[None, :] * p[:, None]
-
-    def _fused_pr1_parts(self, modelparams, expparams):
-        from ..ops.fused_update import noisy_coin_pr1
-
-        alpha = jnp.asarray(
-            expparams_field(expparams, "alpha"), jnp.float32
-        ).reshape(-1)[:1]
-        beta = jnp.asarray(
-            expparams_field(expparams, "beta"), jnp.float32
-        ).reshape(-1)[:1]
-        return (noisy_coin_pr1, jnp.concatenate([alpha, beta]),
-                (modelparams[:, 0],))
 
 
 @jax.tree_util.register_static
@@ -315,15 +274,6 @@ class MultiCosModel(FiniteOutcomeModel):
         arg = 0.5 * (modelparams @ ts.T)  # (N, E)
         return jnp.cos(arg) ** 2
 
-    def _fused_pr1_parts(self, modelparams, expparams):
-        from ..ops.fused_update import make_multicos_pr1
-
-        ts = jnp.asarray(
-            expparams_field(expparams, "ts"), jnp.float32
-        ).reshape(-1)[: self.n_terms]
-        cols = tuple(modelparams[:, i] for i in range(self.n_terms))
-        return make_multicos_pr1(self.n_terms), ts, cols
-
 
 @jax.tree_util.register_static
 @dataclass(frozen=True, eq=False)
@@ -363,11 +313,3 @@ class KnownT2PrecessionModel(FiniteOutcomeModel):
         decay = jnp.exp(-t / self.t2)[None, :]
         coherent = jnp.cos(0.5 * omega[:, None] * t[None, :]) ** 2
         return decay * coherent + 0.5 * (1.0 - decay)
-
-    def _fused_pr1_parts(self, modelparams, expparams):
-        from ..ops.fused_update import make_known_t2_pr1
-
-        t = jnp.asarray(
-            expparams_field(expparams, "t"), jnp.float32
-        ).reshape(-1)[:1]
-        return make_known_t2_pr1(float(self.t2)), t, (modelparams[:, 0],)

@@ -1,11 +1,11 @@
 """Multi-device / multi-host particle-bank sharding.
 
-TPU-native replacement for the reference's ipyparallel cluster fan-out
+Replacement for the reference's ipyparallel cluster fan-out
 (``src/qinfer/parallel.py — DirectViewParallelizedModel``): instead of
 scattering modelparams row-blocks over TCP to cluster engines, the particle
 bank is sharded over a ``jax.sharding.Mesh`` axis and XLA inserts the
 collectives (psum for moments/normalization, all-gathers for resampling)
-over ICI/DCN.
+between devices.
 """
 
 from .direct_view import DirectViewParallelizedModel
@@ -17,6 +17,7 @@ from .mesh import (
     replicate,
     shard_episode_keys,
     shard_state,
+    state_sharding,
 )
 from .sharded_smc import (
     distributed_systematic_pick,
@@ -39,6 +40,7 @@ __all__ = [
     "make_particle_mesh",
     "host_local_mesh",
     "shard_state",
+    "state_sharding",
     "shard_episode_keys",
     "replicate",
     "global_logsumexp",

@@ -5,7 +5,7 @@ Reference parity: ``src/qinfer/parallel.py — DirectViewParallelizedModel``
 across ipyparallel engines and gathers the results; ``serial_threshold``
 skips the scatter for small jobs).
 
-TPU-native change: the "cluster" is a ``jax.sharding.Mesh`` and the
+Change from the reference: the "cluster" is a ``jax.sharding.Mesh`` and the
 scatter/gather is GSPMD — the wrapper pins the particle axis of every
 likelihood call to the mesh's ``particles`` axis with
 ``lax.with_sharding_constraint`` (under jit) or an explicit sharded
@@ -80,10 +80,3 @@ class DirectViewParallelizedModel(DerivedModel):
             key, self._shard(jnp.asarray(modelparams)), expparams,
             repeat=repeat,
         )
-
-    # The fused single-pass kernel would force a gather under GSPMD —
-    # this wrapper's whole point is sharded evaluation, so the engine
-    # must take the XLA path (which GSPMD distributes).
-    @property
-    def fused_update_supported(self):
-        return False

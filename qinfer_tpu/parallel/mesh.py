@@ -8,14 +8,14 @@ mesh axes cover the framework's parallelism inventory (SURVEY §2, table
 
 - ``particles``: shards the particle bank (the framework's data-parallel
   axis). Weight normalization, ESS, and moments are contractions over this
-  axis — XLA turns them into ``psum`` over ICI. This replaces
+  axis — XLA turns them into ``psum`` between devices. This replaces
   ipyparallel's scatter/gather (SURVEY §5.8).
 - ``trials``: shards vmapped independent episodes (``perf_test_multiple``)
   — embarrassingly parallel ensembles.
 
 Multi-host: call ``jax.distributed.initialize()`` before building the mesh;
 ``make_particle_mesh`` then spans all processes' devices and the same
-jitted step runs pod-wide (moments ride ICI intra-slice, DCN across hosts).
+jitted step runs across all of them.
 """
 
 from __future__ import annotations
@@ -50,23 +50,26 @@ def host_local_mesh(n_trials_axis, n_particle_axis=None, devices=None):
     return Mesh(arr, (TRIAL_AXIS, PARTICLE_AXIS))
 
 
-def shard_state(state, mesh):
-    """Put the particle-axis leaves of an SMCState on the mesh.
+def state_sharding(mesh):
+    """The ``SMCState`` of shardings that ``shard_state`` places:
+    ``particle_locations``/``particle_log_weights`` over ``particles``,
+    scalar bookkeeping and the PRNG key replicated.
 
-    ``particle_locations``/``particle_log_weights`` shard over
-    ``particles``; scalar bookkeeping and the PRNG key replicate.
-    """
-    p_sharding = NamedSharding(mesh, P(PARTICLE_AXIS))
-    r_sharding = NamedSharding(mesh, P())
+    Pass it as ``out_shardings`` of a jitted step to keep the bank
+    sharded: left to itself, GSPMD may return the bank replicated."""
+    from ..smc import SMCState
 
-    def place(leaf, name):
-        if name in ("particle_locations", "particle_log_weights"):
-            return jax.device_put(leaf, p_sharding)
-        return jax.device_put(leaf, r_sharding)
-
-    return type(state)(
-        **{name: place(leaf, name) for name, leaf in state._asdict().items()}
+    particles = NamedSharding(mesh, P(PARTICLE_AXIS))
+    replicated = NamedSharding(mesh, P())
+    return SMCState(
+        **{name: particles if name.startswith("particle_") else replicated
+           for name in SMCState._fields}
     )
+
+
+def shard_state(state, mesh):
+    """Put an SMCState on the mesh with ``state_sharding(mesh)``."""
+    return jax.device_put(state, state_sharding(mesh))
 
 
 def shard_episode_keys(keys, mesh):

@@ -1,6 +1,6 @@
 """Explicit-collective sharded SMC step (shard_map over the particle axis).
 
-TPU-native replacement for the reference's cluster fan-out
+Replacement for the reference's cluster fan-out
 (``src/qinfer/parallel.py — DirectViewParallelizedModel``, SURVEY §5.8):
 the particle bank lives sharded across a mesh axis and every global
 quantity is an explicit collective:
@@ -16,7 +16,7 @@ quantity is an explicit collective:
 - posterior sampling (PGH): Gumbel-max over shards via pmax/psum.
 
 The GSPMD path (qinfer_tpu.parallel.mesh + plain jit) is the default; this
-module is for pod-scale runs where collective placement must be explicit.
+module is for runs where collective placement must be explicit.
 """
 
 from __future__ import annotations
@@ -28,6 +28,8 @@ import jax.numpy as jnp
 from jax import shard_map
 from jax.sharding import PartitionSpec as P
 
+from .._platform import PRECISION
+from ..resamplers import fill_forward_indices
 from ..smc import SMCConfig, SMCState
 from .mesh import PARTICLE_AXIS
 
@@ -61,14 +63,6 @@ def global_logsumexp(x, axis_name):
     return m + jnp.log(s)
 
 
-def _merge_lse(lse_local, axis_name):
-    """Merge per-shard logsumexp scalars into the global logsumexp —
-    the associative combine of the fused kernel's streaming stats."""
-    m = jax.lax.pmax(lse_local, axis_name)
-    s = jax.lax.psum(jnp.exp(lse_local - m), axis_name)
-    return m + jnp.log(s)
-
-
 def sharded_ess(log_w_shard, axis_name):
     lse = global_logsumexp(log_w_shard, axis_name)
     lse2 = global_logsumexp(2.0 * log_w_shard, axis_name)
@@ -79,10 +73,13 @@ def sharded_moments(log_w_shard, locs_shard, axis_name):
     """Globally-normalized weighted mean/cov via psum (centered)."""
     lse = global_logsumexp(log_w_shard, axis_name)
     w = jnp.exp(log_w_shard - lse)
-    mu = jax.lax.psum(w @ locs_shard, axis_name)
+    mu = jax.lax.psum(jnp.matmul(w, locs_shard, precision=PRECISION),
+                      axis_name)
     centered = locs_shard - mu[None, :]
     cov = jax.lax.psum(
-        jnp.einsum("i,id,ie->de", w, centered, centered), axis_name
+        jnp.einsum("i,id,ie->de", w, centered, centered,
+                   precision=PRECISION),
+        axis_name,
     )
     return mu, 0.5 * (cov + cov.T)
 
@@ -107,10 +104,10 @@ def _sharded_segment_starts(key, log_w_shard, axis_name):
 
     lse = global_logsumexp(log_w_shard, axis_name)
     w = jnp.exp(log_w_shard - lse)
-    from ..resamplers import _CDF_QUANT, exact_int_cumsum
+    from ..resamplers import _CDF_QUANT
 
     q = jnp.round(w * _CDF_QUANT).astype(jnp.int32)
-    local_icdf = exact_int_cumsum(q)  # exact integer prefix
+    local_icdf = jnp.cumsum(q)  # exact integer prefix
     totals = jax.lax.all_gather(local_icdf[-1], axis_name)  # (K,) int32
     prefix = jnp.concatenate(
         [jnp.zeros((1,), jnp.int32), jnp.cumsum(totals)[:-1]]
@@ -128,21 +125,13 @@ def _sharded_segment_starts(key, log_w_shard, axis_name):
     return starts_local, n_global
 
 
-def distributed_systematic_pick(key, log_w_shard, locs_shard, axis_name,
-                                use_expand_kernel=False):
+def distributed_systematic_pick(key, log_w_shard, locs_shard, axis_name):
     """Systematic-resampled particle draw under sharding.
 
     Every shard ends with exactly its shard-size worth of globally
     systematic-resampled particles. The segment boundaries are computed
     *locally* from the shard-prefix of the global CDF; migration is one
     all_gather (see module docstring).
-
-    ``use_expand_kernel=True`` routes the per-shard pick through the
-    Pallas expand kernel (``ops.resample_expand``): the shard's stratum
-    window is realized by shifting the gathered global starts by the
-    window origin (out[i + s0] = v[max{j : starts_j ≤ i + s0}] =
-    v[max{j : max(starts_j − s0, 0) ≤ i}]) — identical picks, no
-    scatter/gather/cummax over the bank.
     """
     n_local = log_w_shard.shape[0]
     my_k = jax.lax.axis_index(axis_name)
@@ -152,36 +141,18 @@ def distributed_systematic_pick(key, log_w_shard, locs_shard, axis_name,
         key, log_w_shard, axis_name
     )
 
-    # Migration: gather the full (starts, locs) and expand only my strata
-    # window [my_k·n_local, (my_k+1)·n_local).
+    # Migration: gather the full (starts, locs) and fill forward only my
+    # strata window [my_k·n_local, (my_k+1)·n_local).
     starts_all = jax.lax.all_gather(
         starts_local, axis_name
     ).reshape(n_global)
     locs_all = jax.lax.all_gather(locs_shard, axis_name).reshape(
         n_global, locs_shard.shape[1]
     )
-    my_s0 = my_k * n_local
-    # The kernel carries segment starts in f32 — exact only below 2^24.
-    # The single-chip wrapper guards n_out, but here the SHIFTED starts
-    # range up to n_global: fall back to the scatter pick rather than
-    # silently rounding boundaries at pod scale.
-    if use_expand_kernel and n_global < (1 << 24):
-        from ..ops.resample_expand import expand_sorted_segments
-
-        shifted = jnp.maximum(
-            starts_all.astype(jnp.float32) - my_s0.astype(jnp.float32), 0.0
-        )
-        return expand_sorted_segments(shifted, locs_all, n_out=n_local)
-    rel = starts_all - my_s0
-    particle_ids = jnp.arange(n_global, dtype=jnp.int32)
-    # Scatter-max at clipped starts: sources before my window collapse to
-    # slot 0 where max picks the covering particle; sources past the
-    # window are dropped.
-    z = jnp.zeros((n_local,), jnp.int32).at[
-        jnp.maximum(rel, 0)
-    ].max(particle_ids, mode="drop")
-    idx = jax.lax.cummax(z)
-    return locs_all[idx]
+    # Sources before my window collapse to slot 0, where the max picks
+    # the covering particle; sources past the window are dropped.
+    rel = jnp.maximum(starts_all - my_k * n_local, 0)
+    return locs_all[fill_forward_indices(rel, n_local)]
 
 
 def distributed_systematic_pick_ring(key, log_w_shard, locs_shard,
@@ -254,21 +225,13 @@ def make_sharded_update_step(mesh, model, resampler, config: SMCConfig,
     ``migration``: 'auto' (default — ring when the gathered bank would
     exceed ``_RING_MIGRATION_BYTES`` per shard, else all_gather),
     'all_gather', or 'ring' (O(n_local) peak memory via ppermute rounds —
-    what 'auto' picks at pod scale).
+    what 'auto' picks for large banks).
 
     Returns ``step(state, outcome, expparams) -> (state, log_norm)`` with
     ``state.particle_locations``/``particle_log_weights`` sharded over the
     ``particles`` mesh axis and all other leaves replicated. Semantics
     match ``smc.smc_update_step`` (Bayes update → ESS → conditional
     Liu–West resample) with explicit collectives.
-
-    Multi-chip fast path: on TPU backends, models exposing the fused
-    Pallas update run it PER SHARD and psum-merge the streaming-logsumexp
-    stats for the global evidence/ESS, and the Liu–West pick routes
-    through the per-shard expand kernel — the same two hot-loop winners
-    as the single-chip engine (round-2 verdict item #2). Both honor the
-    same config switches (``SMCConfig.use_fused_update``,
-    ``LiuWestResampler.use_expand_kernel``).
 
     Time-dependent models (``update_timestep`` overridden — reference:
     ``abstract_model.py — Simulatable.update_timestep`` applied every
@@ -293,13 +256,6 @@ def make_sharded_update_step(mesh, model, resampler, config: SMCConfig,
         n_zero_weight_events=P(),
     )
 
-    supported = getattr(model, "fused_update_supported", False)
-    use_fused = bool(supported) and (
-        config.use_fused_update
-        if config.use_fused_update is not None
-        else jax.default_backend() == "tpu"
-    )
-
     @partial(
         shard_map,
         mesh=mesh,
@@ -319,26 +275,13 @@ def make_sharded_update_step(mesh, model, resampler, config: SMCConfig,
             outcome_arr = outcome.reshape(1, outcome.shape[-1])
         else:
             outcome_arr = jnp.atleast_1d(outcome)[:1]
-        if use_fused:
-            # Per-shard fused Pallas kernel; the raw streaming-logsumexp
-            # stats (lse, lse2) are associative, so the global evidence
-            # and ESS come from one pmax+psum merge each.
-            lw_new, lse_loc, lse2_loc = model.fused_update(
-                outcome_arr[0], log_w, locs, expparams, return_stats=True
-            )
-            log_norm = _merge_lse(lse_loc, axis)
-            lse2 = _merge_lse(lse2_loc, axis)
-            lw_norm = lw_new - log_norm
-            fused_ess = jnp.exp(-(lse2 - 2.0 * log_norm))
-        else:
-            log_L = jnp.clip(
-                model.log_likelihood(outcome_arr, locs, expparams)[0, :, 0],
-                -87.0,  # lower only — continuous densities may exceed 1
-            )
-            lw_new = log_w + log_L
-            log_norm = global_logsumexp(lw_new, axis)
-            lw_norm = lw_new - log_norm
-            fused_ess = None
+        log_L = jnp.clip(
+            model.log_likelihood(outcome_arr, locs, expparams)[0, :, 0],
+            -87.0,  # lower only — continuous densities may exceed 1
+        )
+        lw_new = log_w + log_L
+        log_norm = global_logsumexp(lw_new, axis)
+        lw_norm = lw_new - log_norm
 
         is_zero = log_norm < jnp.log(config.zero_weight_thresh)
         if config.zero_weight_policy == "reset":
@@ -346,12 +289,7 @@ def make_sharded_update_step(mesh, model, resampler, config: SMCConfig,
             lw_norm = jnp.where(is_zero, uniform, lw_norm)
         zero_events = state.n_zero_weight_events + is_zero.astype(jnp.int32)
 
-        if fused_ess is not None:
-            ess = fused_ess
-            if config.zero_weight_policy == "reset":
-                ess = jnp.where(is_zero, jnp.float32(n_global), ess)
-        else:
-            ess = sharded_ess(lw_norm, axis)
+        ess = sharded_ess(lw_norm, axis)
         need_resample = ess < config.resample_thresh * n_global
 
         def do_resample(locs, lw):
@@ -369,7 +307,7 @@ def make_sharded_update_step(mesh, model, resampler, config: SMCConfig,
             mig = migration
             if mig == "auto":
                 # Ring when the gathered (starts + locs) bank would blow
-                # past the per-shard byte budget — at pod scale the
+                # past the per-shard byte budget — for large banks the
                 # all_gather defeats the memory point of sharding.
                 gathered = n_glob * 4 * (1 + d)
                 mig = "ring" if gathered > _RING_MIGRATION_BYTES else (
@@ -379,27 +317,17 @@ def make_sharded_update_step(mesh, model, resampler, config: SMCConfig,
                     k_res, lw, locs, axis
                 )
             else:
-                if resampler.use_expand_kernel is None:
-                    use_expand = (
-                        jax.default_backend() == "tpu"
-                        and (1 << 17) <= n_glob < (1 << 24)
-                    )
-                else:
-                    use_expand = bool(resampler.use_expand_kernel)
-                picked = distributed_systematic_pick(
-                    k_res, lw, locs, axis, use_expand_kernel=use_expand
-                )
+                picked = distributed_systematic_pick(k_res, lw, locs, axis)
             centers = a * picked + (1.0 - a) * mu[None, :]
             k_local = jax.random.fold_in(k_res, jax.lax.axis_index(axis))
             k0, kloop = jax.random.split(k_local)
-            # Same fast-RNG smear as the single-device resampler
-            # (threefry→rbg; ~10× cheaper normals on TPU — see
-            # resamplers.fast_normal).
+            # Same RngBitGenerator smear as the single-device resampler
+            # (resamplers.fast_normal).
             from ..resamplers import fast_normal
 
-            draw = lambda k: centers + fast_normal(
-                k, centers.shape
-            ) @ S.T
+            draw = lambda k: centers + jnp.matmul(
+                fast_normal(k, centers.shape), S.T, precision=PRECISION
+            )
             new_locs = draw(k0)
             if resampler.postselect:
                 valid0 = jnp.asarray(model.are_models_valid(new_locs))
@@ -479,7 +407,7 @@ def make_sharded_expdesign(mesh, model):
 
     Reference: ``src/qinfer/smc.py — SMCUpdater.bayes_risk /
     expected_information_gain`` (BASELINE config 5's adaptive design loop,
-    here runnable against a pod-sharded bank). The per-shard math is
+    here runnable against a mesh-sharded bank). The per-shard math is
     ``smc.bayes_risk_fn`` / ``expected_information_gain_fn`` with
     ``axis_name`` set — the streaming pr1 sufficient statistics
     (marg1/A/B/T/U, h_marg/h_cond) and the general-path einsums each merge

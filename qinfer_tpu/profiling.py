@@ -2,7 +2,7 @@
 
 The reference's observability is counters (``Simulatable.sim_count``,
 ``Model.call_count``) and wall-clock per update (``perf_testing``). The
-TPU build keeps those (on ``SMCUpdater``) and adds:
+This package keeps those (on ``SMCUpdater``) and adds:
 
 - ``ThroughputMeter``: the north-star particle-updates/s meter;
 - ``trace``: context manager around ``jax.profiler`` device traces;

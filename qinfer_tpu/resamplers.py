@@ -1,4 +1,4 @@
-"""On-device resamplers (TPU-native analogue of qinfer's resamplers.py).
+"""On-device resamplers (JAX analogue of qinfer's resamplers.py).
 
 Reference parity: ``src/qinfer/resamplers.py`` — ``Resampler`` (ABC),
 ``LiuWestResampler`` (a=0.98 default; h, maxiter, postselect,
@@ -11,9 +11,9 @@ inside the jitted SMC step:
 - index draw: *systematic resampling* instead of the reference's
   multinomial ``np.random.choice`` — same marginal distribution over
   counts with strictly lower variance (PAPERS.md: variance reduction of
-  resampling, arXiv:2309.08620). The inverse-CDF pick is computed without
-  ``searchsorted`` or full-width gathers (``systematic_pick_blocked``;
-  measured table in doc/guide_performance.md).
+  resampling, arXiv:2309.08620). The inverse-CDF lookup is one
+  scatter-max plus one cummax (``systematic_resample_indices``), and the
+  pick is one row gather ``locs[idx]``.
 - Liu–West shrinkage: new = a·x[idx] + (1−a)·μ + h·Σ^{1/2}·ε preserves the
   first two posterior moments exactly (h² = 1 − a²).
 - postselection: the reference's unbounded per-particle rejection loop
@@ -30,6 +30,7 @@ from typing import Callable, Optional
 import jax
 import jax.numpy as jnp
 
+from ._platform import PRECISION
 from .utils import normalize_log_weights, sqrtm_psd, weighted_moments
 
 __all__ = [
@@ -37,7 +38,7 @@ __all__ = [
     "LiuWestResampler",
     "ClusteringResampler",
     "systematic_resample_indices",
-    "systematic_pick_blocked",
+    "fill_forward_indices",
     "multinomial_resample_indices",
     "fast_normal",
 ]
@@ -48,67 +49,38 @@ __all__ = [
 _CDF_QUANT = float(1 << 30)
 
 
-def exact_int_cumsum(q):
-    """Inclusive int32 cumsum via a three-level (m, 128, 128) hierarchy.
-
-    Integer addition is exact, so ANY decomposition yields the identical
-    result — this one replaces XLA's ~log₂(n) full-width scan passes with
-    one lane-axis cumsum over 128-wide rows plus two tiny prefixes.
-    Measured at 1M on TPU: 0.095 ms vs 0.203 ms for flat ``jnp.cumsum``.
-    """
-    n = q.shape[0]
-    blk = 128 * 128
-    if n < blk:
-        return jnp.cumsum(q)
-    n_pad = ((n + blk - 1) // blk) * blk
-    if n_pad != n:
-        q = jnp.concatenate([q, jnp.zeros((n_pad - n,), q.dtype)])
-    q3 = q.reshape(n_pad // blk, 128, 128)
-    lane = jnp.cumsum(q3, axis=2)
-    row_tot = lane[:, :, -1]  # (m, 128)
-    row_pref = jnp.cumsum(row_tot, axis=1)
-    row_excl = row_pref - row_tot
-    blk_tot = row_pref[:, -1]  # (m,)
-    blk_excl = jnp.concatenate(
-        [jnp.zeros((1,), q.dtype), jnp.cumsum(blk_tot)[:-1]]
-    )
-    out = lane + row_excl[:, :, None] + blk_excl[:, None, None]
-    return out.reshape(n_pad)[:n]
-
-
 def systematic_segment_starts(key, log_w, n_draws):
     """Shared inverse-CDF prep: sorted f32 segment starts, starts[0] == 0.
 
     t_j = ceil(n·cdf_j − u0) = number of strata below cdf_j, so particle
-    j covers output slots [t_{j−1}, t_j). Every systematic pick path
-    (scatter fill-forward, blocked pick, Pallas expand kernel) derives
-    from these starts, so they agree element-for-element.
+    j covers output slots [t_{j−1}, t_j). The single-device pick and the
+    sharded pick both derive from these starts, so they agree
+    element-for-element.
 
-    Monotonicity of t is a *hard* requirement (the expand kernel's window
-    advance and the scatter/rank agreement both rely on sorted starts),
-    but XLA lowers f32 cumsum as a parallel scan whose per-prefix rounding
-    trees differ — ulp-level inversions are possible and a monotonizing
-    ``lax.cummax`` costs a full O(n) pass (~0.19 ms at 1M on TPU). Instead
+    Monotonicity of t is a *hard* requirement (the fill-forward pick relies
+    on sorted starts), but XLA lowers f32 cumsum as a parallel scan whose
+    per-prefix rounding trees differ — ulp-level inversions are possible
+    and a monotonizing ``lax.cummax`` costs a full O(n) pass. Instead
     the weights are quantized to int32 (relative granularity 2⁻³⁰, far
     below f32's own 2⁻²⁴ weight precision) and the CDF is an *integer*
     cumsum — exact, hence monotone by construction under any scan tree —
     followed by monotone ops only (int→f32 cast, positive-constant
     multiply, subtract, ceil are all order-preserving).
 
-    The starts are f32, exact only for ``n_draws < 2^24`` — EVERY consumer
-    (scatter fill-forward, blocked pick, expand kernel, sharded pick)
-    inherits this bound. The expand-kernel wrapper raises on it; the
-    in-engine paths always use n_draws == n_particles, and a 16M-particle
-    single-precision SMC bank is far past f32 weight resolution anyway.
+    The starts are f32 integers, exact for ``n_draws <= 2^24`` (every
+    integer up to 2^24 is an f32; a t past n_draws covers no slot and is
+    dropped). Every consumer, the sharded pick included, inherits this
+    bound; a single-precision bank past 2^24 particles is beyond f32
+    weight resolution anyway.
     """
-    if n_draws >= 1 << 24:
+    if n_draws > 1 << 24:
         raise ValueError(
             "systematic_segment_starts carries starts in f32 — exact only "
-            f"for n_draws < 2^24 (got {n_draws})"
+            f"for n_draws <= 2^24 (got {n_draws})"
         )
     w = jnp.exp(normalize_log_weights(log_w)[0])
     q = jnp.round(w * _CDF_QUANT).astype(jnp.int32)
-    icdf = exact_int_cumsum(q)  # exact integer prefix — monotone by construction
+    icdf = jnp.cumsum(q)  # exact integer prefix — monotone by construction
     total = jnp.maximum(icdf[-1], 1)
     u0 = jax.random.uniform(key, ())
     scale = jnp.float32(n_draws) / total.astype(jnp.float32)
@@ -118,28 +90,33 @@ def systematic_segment_starts(key, log_w, n_draws):
     )
 
 
+def fill_forward_indices(starts, n_out):
+    """idx[i] = max{j : starts_j ≤ i} for sorted int32 ``starts``.
+
+    One scatter-max of the source ids at their starts, then one cummax.
+    Starts at or after ``n_out`` cover no slot and are dropped (an upper
+    clip would instead let them steal the final slot's max); negative
+    starts must be clamped to 0 by the caller (the sharded pick clamps
+    sources before its window)."""
+    ids = jnp.arange(starts.shape[0], dtype=jnp.int32)
+    z = jnp.zeros((n_out,), jnp.int32).at[starts].max(ids, mode="drop")
+    return jax.lax.cummax(z)
+
+
 def systematic_resample_indices(key, log_w, n_draws=None):
     """Systematic resampling: indices i such that x[i] ~ Categorical(w).
 
     Strata u_k = (k + u0)/n with a single u0 ~ U[0,1); the inverse-CDF
     lookup is computed *scatter-side* instead of search-side (the standard
-    parallel formulation, PAPERS.md arXiv:1301.4019, re-expressed for TPU):
-    idx = fill-forward of j scattered at t_{j−1}, i.e. one scatter-max +
-    one cummax — O(n) HBM passes. This avoids ``jnp.searchsorted``, whose
-    binary search serializes ~20 full-width gathers on TPU (measured 130ms
-    at n=1M vs ~15ms for this formulation).
+    parallel formulation, PAPERS.md arXiv:1301.4019): idx = fill-forward
+    of j scattered at t_{j−1}, i.e. one scatter-max + one cummax — O(n)
+    memory passes, where ``jnp.searchsorted`` would run a binary search
+    of ~log₂(n) dependent gathers.
     """
     n = log_w.shape[0]
     n_draws = n if n_draws is None else n_draws
-    # Particles whose segment starts at/after n_draws cover no stratum —
-    # mode="drop" discards them (an upper clip would instead let them
-    # steal the final slot's max).
     starts = systematic_segment_starts(key, log_w, n_draws).astype(jnp.int32)
-    particle_ids = jnp.arange(n, dtype=jnp.int32)
-    z = jnp.zeros((n_draws,), jnp.int32).at[starts].max(
-        particle_ids, mode="drop"
-    )
-    return jax.lax.cummax(z)
+    return fill_forward_indices(starts, n_draws)
 
 
 def multinomial_resample_indices(key, log_w, n_draws=None):
@@ -149,91 +126,13 @@ def multinomial_resample_indices(key, log_w, n_draws=None):
     return jax.random.categorical(key, log_w, shape=(n_draws,)).astype(jnp.int32)
 
 
-def systematic_pick_blocked(key, log_w, values, tile=1024):
-    """Systematic-resampled values[idx] with NO full-width element gather.
-
-    TPU's element gather costs ~8.4ms at 1M (1 element/cycle); this
-    computes the same pick in ~half via three cheap primitives:
-
-    1. *Compact* the covered particles (those with ≥1 stratum): covered
-       particles have strictly increasing, unique segment starts, so a
-       unique-index scatter builds the compacted value array and a
-       ones-scatter + cumsum gives each stratum its covering particle's
-       *compacted* index ``idxc`` — which increments by ≤1 per stratum.
-    2. Per output tile of ``tile`` strata, the needed compacted values
-       therefore span at most tile+1 entries: fetch them with one
-       vmapped ``dynamic_slice`` (a block gather — ~30× fewer descriptor
-       operations than an element gather).
-    3. Select within the tile by a banded one-hot compare/sum (VPU).
-
-    values: (n,) or (n, D) — columns share all index math.
-    """
-    n = log_w.shape[0]
-    starts = systematic_segment_starts(key, log_w, n).astype(jnp.int32)
-    t = jnp.concatenate([starts[1:], jnp.full((1,), n, jnp.int32)])
-    covered = t > starts  # c_j > 0
-
-    # Compaction positions. unique_indices promises uniqueness over ALL
-    # positions (even dropped ones), so uncovered particles get distinct
-    # out-of-bounds slots n+i rather than a shared sentinel.
-    arange_n = jnp.arange(n, dtype=jnp.int32)
-    cum_cov = jnp.cumsum(covered.astype(jnp.int32))
-    pos = jnp.where(covered, cum_cov - 1, n + arange_n)
-
-    # Compacted covering index per stratum: ones at covered starts
-    # (unique by strict monotonicity), then cumsum − 1.
-    ones_at = (
-        jnp.zeros((n,), jnp.int32)
-        .at[jnp.where(covered, starts, n + arange_n)]
-        .set(1, mode="drop", unique_indices=True)
-    )
-    idxc = jnp.cumsum(ones_at) - 1  # (n,), steps of ≤1 per stratum
-
-    n_pad = ((n + tile - 1) // tile) * tile
-    if n_pad != n:
-        idxc = jnp.concatenate(
-            [idxc, jnp.broadcast_to(idxc[n - 1], (n_pad - n,))]
-        )
-    n_tiles = n_pad // tile
-    idxc_tiles = idxc.reshape(n_tiles, tile)
-    s_k = idxc_tiles[:, 0]  # per-tile compacted window origin
-    local = idxc_tiles - s_k[:, None]  # ∈ [0, tile]
-    iota = jnp.arange(tile + 8)
-    onehot = local[:, :, None] == iota[None, None, :]
-
-    values = jnp.asarray(values)
-    squeeze = values.ndim == 1
-    vals2d = values[:, None] if squeeze else values
-
-    def pick_col(col):
-        col_c = (
-            jnp.zeros((n,), col.dtype)
-            .at[pos]
-            .set(col, mode="drop", unique_indices=True)
-        )
-        col_c = jnp.concatenate([col_c, jnp.zeros((tile + 8,), col.dtype)])
-        blocks = jax.vmap(
-            lambda s: jax.lax.dynamic_slice(col_c, (s,), (tile + 8,))
-        )(s_k)  # (n_tiles, tile+8)
-        out = jnp.sum(
-            jnp.where(onehot, blocks[:, None, :], 0.0), axis=-1
-        ).reshape(n_pad)
-        return out[:n]
-
-    out = jnp.stack(
-        [pick_col(vals2d[:, d]) for d in range(vals2d.shape[1])], axis=1
-    )
-    return out[:, 0] if squeeze else out
-
-
 def fast_normal(key, shape):
-    """Standard-normal draw through the backend's fast counter RNG.
+    """Standard-normal draw through XLA's RngBitGenerator (``impl='rbg'``).
 
     The Liu–West smear draws n·d normals per resample; jax's default
-    threefry2x32 computes each block by a 20-round software hash —
-    measured 83.6 µs at 2^20 on the TPU vs **8.1 µs** for the XLA
-    RngBitGenerator path (``impl='rbg'``, the hardware PRNG on TPU).
-    The mapping threefry-key → rbg-key is deterministic, so trajectories
+    threefry2x32 computes each block by a 20-round software hash, the
+    RngBitGenerator path does not (whether that pays on the GPU is not
+    measured yet). The mapping threefry-key → rbg-key is deterministic, so trajectories
     are reproducible per backend; the rbg bit-stream itself is NOT
     guaranteed stable across backends/jax versions (fine for smoothing
     noise — pass ``LiuWestResampler(kernel=...)`` where cross-backend
@@ -276,14 +175,6 @@ class LiuWestResampler(Resampler):
     postselect: bool = True
     kernel: Optional[Callable] = None
     use_systematic: bool = True
-    # Pallas expand kernel for the index-draw+pick: ~9× the XLA blocked
-    # pick at 1M particles (14.4 → 1.6 ms measured, kernel v4 r5; all
-    # columns share one rank pass, so multi-parameter models amortize).
-    # None = auto: on for single-device TPU at n ∈ [2^17, 2^24) (the
-    # one-time ~30 s Mosaic compile only pays off for big-N runs; under
-    # GSPMD sharding the shard_map path has its own distributed pick).
-    # True/False force it on/off.
-    use_expand_kernel: Optional[bool] = None
 
     @property
     def _h(self):
@@ -304,37 +195,18 @@ class LiuWestResampler(Resampler):
         S = sqrtm_psd((h * h) * cov)
 
         k_idx, k_draw = jax.random.split(key)
-        if self.use_expand_kernel is None:
-            use_expand = (
-                jax.default_backend() == "tpu"
-                and jax.device_count() == 1
-                and (1 << 17) <= n < (1 << 24)
-            )
+        if self.use_systematic:
+            idx = systematic_resample_indices(k_idx, log_w)
         else:
-            use_expand = bool(self.use_expand_kernel)
-        if use_expand:
-            # Pallas merge kernel: picks locs[idx] directly with no
-            # gather/scatter; all D columns share one pass, and the
-            # Liu–West shrinkage affine rides the kernel's output stage
-            # (one fewer full pass over the picked bank).
-            from .ops.resample_expand import systematic_expand
-
-            centers = systematic_expand(
-                k_idx, log_w, locs, scale=self.a, shift=(1.0 - self.a) * mu
-            )
-        elif self.use_systematic:
-            # Blocked pick: compaction + block-slice gather + banded
-            # select — ~2× the element-gather path on TPU at 1M.
-            picked = systematic_pick_blocked(k_idx, log_w, locs)
-            centers = self.a * picked + (1.0 - self.a) * mu[None, :]
-        else:
-            picked = locs[multinomial_resample_indices(k_idx, log_w)]
-            centers = self.a * picked + (1.0 - self.a) * mu[None, :]
+            idx = multinomial_resample_indices(k_idx, log_w)
+        centers = self.a * locs[idx] + (1.0 - self.a) * mu[None, :]
 
         draw_noise = self.kernel if self.kernel is not None else fast_normal
 
         def draw(k):
-            return centers + draw_noise(k, (n, d)) @ S.T
+            return centers + jnp.matmul(
+                draw_noise(k, (n, d)), S.T, precision=PRECISION
+            )
 
         k0, kloop = jax.random.split(k_draw)
         new_locs = draw(k0)

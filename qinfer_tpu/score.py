@@ -3,7 +3,7 @@
 Reference parity: ``src/qinfer/score.py`` — ``ScoreMixin`` (adds a
 numerical ``score()`` to any Model, enabling Fisher information / BCRB).
 
-The TPU build's ``DifferentiableModel`` already derives exact scores via
+This package's ``DifferentiableModel`` already derives exact scores via
 ``jax.jacfwd``; ``ScoreMixin`` re-exports that machinery so reference code
 using ``class M(ScoreMixin, Model)`` ports directly — and gets *exact*
 derivatives instead of finite differences.

@@ -1,4 +1,4 @@
-"""One-call estimation API (TPU-native analogue of qinfer's simple_est.py).
+"""One-call estimation API (JAX analogue of qinfer's simple_est.py).
 
 Reference parity: ``src/qinfer/simple_est.py`` — ``simple_est_prec``,
 ``simple_est_rb``, data loading helper (``load_data_or_txt``). Call stack

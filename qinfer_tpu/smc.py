@@ -1,4 +1,4 @@
-"""SMC inference engine (TPU-native analogue of qinfer's smc.py).
+"""SMC inference engine (JAX analogue of qinfer's smc.py).
 
 Reference parity: ``src/qinfer/smc.py`` — ``SMCUpdater`` (``update``,
 ``batch_update``, ``hypothetical_update``, ``est_mean``, ``est_meanfn``,
@@ -13,7 +13,7 @@ Reference parity: ``src/qinfer/smc.py`` — ``SMCUpdater`` (``update``,
 Design (not a port):
 
 - The particle bank is a pytree ``SMCState`` with **log-space weights**
-  (the reference uses linear f64 weights; log-space is what makes f32 TPU
+  (the reference uses linear f64 weights; log-space is what makes f32
   arithmetic match the f64 oracle within Monte-Carlo error).
 - The updater core is a *pure jitted function*
   ``smc_update_step(model, resampler, config, state, outcome, expparams)``;
@@ -23,8 +23,8 @@ Design (not a port):
   one compiled state machine instead of the reference's Python loop.
 - Sharding is by GSPMD: put a ``NamedSharding(mesh, P('particles'))`` on
   ``state.particle_locations``/``log_weights`` and the same jitted step
-  runs pod-sharded — the moment/normalization reductions become psums over
-  ICI automatically (see ``qinfer_tpu.parallel``).
+  runs sharded over several devices — the moment/normalization reductions
+  become psums automatically (see ``qinfer_tpu.parallel``).
 - ``SMCUpdater`` is a thin stateful host wrapper holding the state pytree
   plus host-side records, preserving the reference API surface.
 """
@@ -40,6 +40,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ._exceptions import ApproximationWarning
+from ._platform import PRECISION
 from .distributions import Distribution, ParticleDistribution
 from .models.base import _n_exps, expparams_field
 from .resamplers import LiuWestResampler
@@ -76,10 +77,6 @@ class SMCConfig:
     zero_weight_policy: str = "error"  # 'error' | 'warn' | 'reset' | 'ignore'
     zero_weight_thresh: float = 1e-10
     canonicalize: bool = True
-    # Fused Pallas update (models exposing ``fused_update``): None = auto
-    # (on for TPU backends — measured 0.024 ms vs 0.22 ms XLA at 2^20);
-    # True forces it (interpret mode on CPU), False disables.
-    use_fused_update: Optional[bool] = None
 
 
 def init_smc_state(key, model, n_particles: int, prior: Distribution) -> SMCState:
@@ -161,39 +158,20 @@ def smc_update_step(model, resampler, config: SMCConfig, state: SMCState,
         outcome_arr = outcome.reshape(1, outcome.shape[-1])
     else:
         outcome_arr = jnp.atleast_1d(outcome)[:1]
-    supported = getattr(model, "fused_update_supported", None)
-    if supported is None:
-        supported = hasattr(model, "fused_update")
-    use_fused = bool(supported) and (
-        config.use_fused_update
-        if config.use_fused_update is not None
-        # Auto: single-device TPU only — under GSPMD sharding the
-        # pallas_call would force a gather; shard_map has its own path.
-        else jax.default_backend() == "tpu" and jax.device_count() == 1
-    )
-    if use_fused:
-        # Single-pass Pallas kernel: likelihood + weight update + both
-        # streaming logsumexp reductions (evidence, ESS) in one sweep over
-        # the particle bank — measured 0.024 ms vs 0.22 ms XLA at 2^20.
-        log_w_norm, log_norm, ess = model.fused_update(
-            outcome_arr[0], state.particle_log_weights,
-            state.particle_locations, expparams,
-        )
-    else:
-        log_L = model.log_likelihood(
-            outcome_arr, state.particle_locations, expparams
-        )[0, :, 0]  # (N,)
-        log_L = jnp.clip(log_L, _LOG_TINY)  # lower only — densities may be > 1
-        log_w_new = state.particle_log_weights + log_L
-        # One shared max feeds both reductions; ESS = s1²/s2 comes out of
-        # the same pass as the evidence, avoiding a second normalized sweep.
-        m = jnp.max(log_w_new)
-        shifted = jnp.exp(log_w_new - m)
-        s1 = jnp.sum(shifted)
-        s2 = jnp.sum(shifted * shifted)
-        log_norm = m + jnp.log(s1)
-        log_w_norm = log_w_new - log_norm
-        ess = s1 * s1 / s2
+    log_L = model.log_likelihood(
+        outcome_arr, state.particle_locations, expparams
+    )[0, :, 0]  # (N,)
+    log_L = jnp.clip(log_L, _LOG_TINY)  # lower only — densities may be > 1
+    log_w_new = state.particle_log_weights + log_L
+    # One shared max feeds both reductions; ESS = s1²/s2 comes out of
+    # the same pass as the evidence, avoiding a second normalized sweep.
+    m = jnp.max(log_w_new)
+    shifted = jnp.exp(log_w_new - m)
+    s1 = jnp.sum(shifted)
+    s2 = jnp.sum(shifted * shifted)
+    log_norm = m + jnp.log(s1)
+    log_w_norm = log_w_new - log_norm
+    ess = s1 * s1 / s2
 
     # Zero-weight (total weight collapse) handling — SURVEY §5.3.
     is_zero = log_norm < jnp.log(config.zero_weight_thresh)
@@ -300,7 +278,7 @@ def _streaming_pr1(model, state: SMCState, expparams, outcomes):
     # The streaming form derives everything from pr0 — only valid when
     # the model's log_likelihood IS the base pr0-routed default (a
     # subclass overriding log_likelihood independently must take the
-    # general path; same hazard class as fused_update_supported's gate).
+    # general path).
     if type(model).log_likelihood is not FiniteOutcomeModel.log_likelihood:
         return None
     try:
@@ -357,12 +335,12 @@ def bayes_risk_fn(model, state: SMCState, expparams, Q=None,
     )
     w = jnp.exp(state.particle_log_weights)  # (N,)
     # (D,) current posterior mean — centering point
-    mu_hat = _psum(w @ locs, axis_name)
+    mu_hat = _psum(jnp.matmul(w, locs, precision=PRECISION), axis_name)
     y = locs - mu_hat[None, :]  # (N, D)
 
     pr1 = _streaming_pr1(model, state, expparams, outcomes)
     if pr1 is not None:
-        # Sufficient statistics, all MXU contractions over the bank:
+        # Sufficient statistics, all contractions over the bank:
         #   marg1[e]  = Σ w·pr1            (evidence of outcome 1)
         #   A[e, d]   = Σ w·pr1·y_d        (outcome-1 first moment, centered)
         #   B[e, d]   = Σ w·pr1·y_d²       (outcome-1 second moment)
@@ -370,16 +348,19 @@ def bayes_risk_fn(model, state: SMCState, expparams, Q=None,
         wp = w[:, None] * pr1  # (N, E)
         marg1 = _psum(jnp.sum(wp, axis=0), axis_name)  # (E,)
         marg0 = jnp.clip(1.0 - marg1, 0.0, 1.0)
-        A = _psum(jnp.einsum("ne,nd->ed", wp, y), axis_name)
-        B = _psum(jnp.einsum("ne,nd->ed", wp, y * y), axis_name)
-        T = _psum(w @ y, axis_name)  # (D,) ≈ 0 by centering
-        U = _psum(w @ (y * y), axis_name)  # (D,)
+        A = _psum(jnp.einsum("ne,nd->ed", wp, y, precision=PRECISION),
+                  axis_name)
+        B = _psum(jnp.einsum("ne,nd->ed", wp, y * y, precision=PRECISION),
+                  axis_name)
+        # (D,) totals; T ≈ 0 by centering
+        T = _psum(jnp.matmul(w, y, precision=PRECISION), axis_name)
+        U = _psum(jnp.matmul(w, y * y, precision=PRECISION), axis_name)
 
         def tr_qvar(m, a, b):
             # tr[Q Cov_o] with weights w·L_o/m: E[y²] − E[y]² per dim.
             m_safe = jnp.maximum(m, 1e-30)[:, None]
             var = jnp.clip(b / m_safe - (a / m_safe) ** 2, 0.0)
-            return var @ q  # (E,)
+            return jnp.matmul(var, q, precision=PRECISION)  # (E,)
 
         risk = marg1 * tr_qvar(marg1, A, B) + marg0 * tr_qvar(
             marg0, T[None, :] - A, U[None, :] - B
@@ -390,12 +371,16 @@ def bayes_risk_fn(model, state: SMCState, expparams, Q=None,
         model, state, outcomes, expparams, axis_name=axis_name
     )
     w_hyp = jnp.exp(log_w_hyp)  # (O, E, N)
-    mu = _psum(jnp.einsum("oen,nd->oed", w_hyp, y), axis_name)
-    second = _psum(jnp.einsum("oen,nd->oed", w_hyp, y * y), axis_name)
+    mu = _psum(jnp.einsum("oen,nd->oed", w_hyp, y, precision=PRECISION),
+               axis_name)
+    second = _psum(
+        jnp.einsum("oen,nd->oed", w_hyp, y * y, precision=PRECISION),
+        axis_name,
+    )
     # Centered at the posterior mean: the difference is numerically benign
     # (clip guards residual f32 rounding only).
     var = jnp.clip(second - mu * mu, 0.0)  # (O, E, D)
-    tr_qcov = var @ q  # (O, E)
+    tr_qcov = jnp.matmul(var, q, precision=PRECISION)  # (O, E)
     pr_o = jnp.exp(log_norm)  # (O, E)
     return jnp.sum(pr_o * tr_qcov, axis=0)
 
@@ -425,11 +410,13 @@ def expected_information_gain_fn(model, state: SMCState, expparams,
     pr1 = _streaming_pr1(model, state, expparams, outcomes)
     if pr1 is not None:
         xlogy = jax.scipy.special.xlogy
-        marg1 = _psum(w @ pr1, axis_name)  # (E,)
+        marg1 = _psum(jnp.matmul(w, pr1, precision=PRECISION),
+                      axis_name)  # (E,)
         marg0 = jnp.clip(1.0 - marg1, 0.0, 1.0)
         h_marg = -(xlogy(marg1, marg1) + xlogy(marg0, marg0))
         h_bin = -(xlogy(pr1, pr1) + xlogy(1.0 - pr1, 1.0 - pr1))  # (N, E)
-        h_cond = _psum(w @ h_bin, axis_name)  # (E,)
+        h_cond = _psum(jnp.matmul(w, h_bin, precision=PRECISION),
+                       axis_name)  # (E,)
         return h_marg - h_cond
 
     log_L = jnp.clip(
@@ -438,11 +425,15 @@ def expected_information_gain_fn(model, state: SMCState, expparams,
         0.0,
     )  # (O, N, E)
     L = jnp.exp(log_L)
-    marg = _psum(jnp.einsum("n,one->oe", w, L), axis_name)  # Pr(o|e)
+    marg = _psum(jnp.einsum("n,one->oe", w, L, precision=PRECISION),
+                 axis_name)  # Pr(o|e)
     # xlogy: 0·log(0) = 0 (an eps floor below FLT_MIN gets flushed to zero
     # and would reintroduce log(0) → NaN for impossible outcomes).
     h_marg = -jnp.sum(jax.scipy.special.xlogy(marg, marg), axis=0)  # (E,)
-    h_cond = -_psum(jnp.einsum("n,one,one->e", w, L, log_L), axis_name)
+    h_cond = -_psum(
+        jnp.einsum("n,one,one->e", w, L, log_L, precision=PRECISION),
+        axis_name,
+    )
     return h_marg - h_cond
 
 
@@ -516,12 +507,31 @@ class SMCUpdater(ParticleDistribution):
         self._init_key = key
         self.state = init_smc_state(key, model, self._n_particles, prior)
 
-        # One jitted step/batch per updater — model/resampler/config are
-        # static pytree nodes, so these trace once per shape signature.
+        # One jitted step/batch per updater and bank placement —
+        # model/resampler/config are static pytree nodes, so these trace
+        # once per shape signature.
         self._jit_step = jax.jit(smc_update_step)
         self._jit_batch = jax.jit(smc_batch_update)
+        self._jits = {(smc_update_step, None): self._jit_step,
+                      (smc_batch_update, None): self._jit_batch}
         self._jit_risk = jax.jit(bayes_risk_fn)
         self._jit_eig = jax.jit(expected_information_gain_fn)
+
+    def _jitted(self, fn):
+        """``jax.jit(fn)``; when the bank is sharded over a mesh, with
+        ``out_shardings`` that keep it so (GSPMD may otherwise return it
+        replicated on every device)."""
+        sharding = getattr(self.state.particle_locations, "sharding", None)
+        mesh = (sharding.mesh
+                if isinstance(sharding, jax.sharding.NamedSharding)
+                and not sharding.is_fully_replicated else None)
+        if (fn, mesh) not in self._jits:
+            from .parallel.mesh import state_sharding
+
+            out = (state_sharding(mesh), jax.sharding.NamedSharding(
+                mesh, jax.sharding.PartitionSpec()))
+            self._jits[fn, mesh] = jax.jit(fn, out_shardings=out)
+        return self._jits[fn, mesh]
 
     # -- properties (reference parity) ------------------------------------
 
@@ -649,7 +659,7 @@ class SMCUpdater(ParticleDistribution):
         )
         expparams = _as_single_expparams(expparams)
         prev_zero = int(self.state.n_zero_weight_events)
-        self.state, log_norm = self._jit_step(
+        self.state, log_norm = self._jitted(smc_update_step)(
             self.model, step_resampler, config, self.state, outcome, expparams
         )
         if (
@@ -685,7 +695,7 @@ class SMCUpdater(ParticleDistribution):
                 )
             return self
         prev_zero = int(self.state.n_zero_weight_events)
-        self.state, log_norms = self._jit_batch(
+        self.state, log_norms = self._jitted(smc_batch_update)(
             self.model, self.resampler, self.config, self.state,
             outcomes, expparams,
         )

@@ -1,4 +1,4 @@
-"""Quantum state/process tomography (TPU-native analogue of qinfer's
+"""Quantum state/process tomography (JAX analogue of qinfer's
 tomography subpackage, SURVEY §2.9) — qutip-free."""
 
 from .bases import (

@@ -1,4 +1,4 @@
-"""Random-state priors (TPU-native analogue of qinfer's
+"""Random-state priors (JAX analogue of qinfer's
 tomography/distributions.py).
 
 Reference parity: ``src/qinfer/tomography/distributions.py`` —
@@ -10,7 +10,7 @@ Reference parity: ``src/qinfer/tomography/distributions.py`` —
 
 All samplers are pure key-consuming functions returning basis coordinates
 (n, d²). The random-matrix arithmetic is done on (re, im) float32 pairs —
-the TPU backend has no complex dtype — with matrix products expanded via
+matching the device path of ``bases`` — with matrix products expanded via
 the standard complex-multiplication identities.
 """
 

@@ -1,13 +1,13 @@
-"""Tomography models (TPU-native analogue of qinfer's tomography/models.py).
+"""Tomography models (JAX analogue of qinfer's tomography/models.py).
 
 Reference parity: ``src/qinfer/tomography/models.py`` — ``TomographyModel``
 (Born rule Pr(+|ρ,E) = Tr(ρE) = ⟨x, e⟩ in an orthonormal basis),
 ``DiffusiveTomographyModel``.
 
-The likelihood is a (N, d²) × (d², E) matvec — pure MXU work. Positivity
-checks are eigendecomposition-FREE: a Newton-identities characteristic-
-polynomial test over the real embedding (batched ``eigvalsh`` is ~100×
-slower on TPU at SMC particle counts; SURVEY §7 hard part (f)).
+The likelihood is a (N, d²) × (d², E) matvec. Positivity checks are
+eigendecomposition-FREE: a Newton-identities characteristic-polynomial
+test over the real embedding, in place of a batched ``eigvalsh`` per
+particle (SURVEY §7 hard part (f)).
 Eigendecompositions remain only in ``canonicalize`` (the PSD projection
 needs eigenvectors), which the resampler invokes lazily.
 """
@@ -19,6 +19,7 @@ from dataclasses import dataclass
 import jax
 import jax.numpy as jnp
 
+from .._platform import PRECISION
 from ..models.base import FiniteOutcomeModel, expparams_field
 from .bases import TomographyBasis
 
@@ -31,16 +32,15 @@ def _psd_via_charpoly(M, tol):
     Shift: eig(M) ≥ −tol ⟺ eig(M + tol·I) ≥ 0 ⟺ (real-rooted char poly)
     every elementary symmetric polynomial e_k of the shifted spectrum is
     ≥ 0; the e_k come from the power sums p_k = Tr((M+tol·I)^k) via
-    Newton's identities. Cost: m−1 batched (m, m) matmuls — measured ~100×
-    cheaper than batched ``eigvalsh`` at SMC particle counts on TPU, where
-    the Jacobi eigensolver dominates the resampler's postselection loop.
+    Newton's identities. Cost: m−1 batched (m, m) matmuls instead of a
+    batched ``eigvalsh``, which would sit inside the resampler's
+    postselection loop.
     """
     m = M.shape[-1]
     Mp = M + tol * jnp.eye(m, dtype=M.dtype)
 
-    # Batched tiny matmuls lower terribly on TPU (measured: 4.7 ms for one
-    # 262k-batch 4×4 einsum vs ~0.05 ms for this unrolled broadcast-sum,
-    # which XLA fuses into elementwise passes).
+    # Tiny (m, m) products as an unrolled broadcast-sum, which XLA fuses
+    # into elementwise passes instead of a batched matmul per particle.
     def mm(A, B):
         return sum(
             A[..., :, j : j + 1] * B[..., j : j + 1, :] for j in range(m)
@@ -108,25 +108,16 @@ class TomographyModel(FiniteOutcomeModel):
         meas = jnp.asarray(
             expparams_field(expparams, "meas"), jnp.float32
         ).reshape(-1, self.n_modelparams)  # (E, d²)
-        pr1 = modelparams @ meas.T  # Born rule matvec (MXU)
+        pr1 = jnp.matmul(modelparams, meas.T,
+                         precision=PRECISION)  # Born rule matvec
         return jnp.clip(1.0 - pr1, 0.0, 1.0)
-
-    def _fused_pr1_parts(self, modelparams, expparams):
-        from ..ops.fused_update import make_born_pr1
-
-        n_el = self.basis.n_elements
-        meas = jnp.asarray(
-            expparams_field(expparams, "meas"), jnp.float32
-        ).reshape(-1)[:n_el]
-        cols = tuple(modelparams[:, d] for d in range(n_el))
-        return make_born_pr1(n_el), meas, cols
 
     def are_models_valid(self, modelparams):
         """ρ ⪰ 0 (eigvals ≥ −tol) and Tr ρ = 1 (x₀ = 1/√d).
 
         Reference: ``TomographyModel.are_models_valid``. Runs on the real
         embedding [[re, −im], [im, re]] — same spectrum as ρ with doubled
-        multiplicity — because the TPU backend has no complex dtype.
+        multiplicity — so the device path needs no complex dtype.
         For qubits the spectrum is closed-form (x₀/√2 ± ‖y‖/√2 in any
         orthonormal basis with B₀ = I/√2), so the PSD test is one
         elementwise pass — this sits inside the resampler's postselection
@@ -178,9 +169,8 @@ class TomographyModel(FiniteOutcomeModel):
         In any orthonormal basis with B₀ = I/√2, ρ = I/2 + T with
         ‖T‖_F = ‖x₁:‖ and 2×2 traceless Hermitian T has eigenvalues ±τ,
         τ = ‖x₁:‖/√2 — so eigenvalue clip + trace renormalization is just
-        a rescale of the non-identity coordinates. Batched eigh of the
-        embedding costs ~450 ms at 262k particles on TPU; this is one
-        elementwise pass.
+        a rescale of the non-identity coordinates: one elementwise pass
+        instead of a batched eigh of the embedding.
         """
         y = modelparams[:, 1:]
         tau = jnp.linalg.norm(y, axis=1) / jnp.sqrt(jnp.float32(2.0))
@@ -238,16 +228,8 @@ class DiffusiveTomographyModel(TomographyModel):
         meas = jnp.asarray(
             expparams_field(expparams, "meas"), jnp.float32
         ).reshape(-1, self.basis.n_elements)
-        pr1 = coords @ meas.T
+        pr1 = jnp.matmul(coords, meas.T, precision=PRECISION)
         return jnp.clip(1.0 - pr1, 0.0, 1.0)
-
-    def _fused_pr1_parts(self, modelparams, expparams):
-        # Explicitly the parent's Born tile: it reads only the first
-        # basis.n_elements columns, so the trailing ε column (which does
-        # not enter the likelihood) is correctly excluded — made explicit
-        # here (rather than inherited) so ``fused_update_supported``'s
-        # likelihood-override gate accepts it.
-        return TomographyModel._fused_pr1_parts(self, modelparams, expparams)
 
     def are_models_valid(self, modelparams):
         coords, eps = self._split(modelparams)

@@ -1,4 +1,4 @@
-"""Rebit-plane plotting (TPU-native analogue of qinfer's
+"""Rebit-plane plotting (JAX analogue of qinfer's
 tomography/plotting_tools.py).
 
 Reference parity: ``src/qinfer/tomography/plotting_tools.py`` —

@@ -1,4 +1,4 @@
-"""Numerics utilities (TPU-native analogue of qinfer's utils.py).
+"""Numerics utilities (JAX analogue of qinfer's utils.py).
 
 Reference parity: ``src/qinfer/utils.py`` — ``binomial_pdf``,
 ``multinomial_pdf``, ``sample_multinomial``, ``outer_product``,
@@ -7,8 +7,8 @@ Reference parity: ``src/qinfer/utils.py`` — ``binomial_pdf``,
 ``assert_sigfigs_equal``, ``compactspace``.
 
 Everything that sits on the device hot path is written in pure jax.numpy with
-log-space numerics (the reference works in linear space with float64; on TPU
-we keep float32 and work with log-weights for stability). Host-side geometry
+log-space numerics (the reference works in linear space with float64; on
+device we keep float32 and work with log-weights for stability). Host-side geometry
 helpers (``mvee``) use NumPy/SciPy since they run once per credible-region
 query, not per SMC step.
 """
@@ -19,6 +19,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.scipy.special import gammaln
+
+from ._platform import PRECISION
 
 __all__ = [
     "log_binomial_coefficient",
@@ -169,11 +171,12 @@ def outer_product(vec):
 def particle_meanfn(weights, locations, fn=None):
     """Σᵢ wᵢ f(xᵢ). Reference: ``src/qinfer/utils.py — particle_meanfn``."""
     fx = locations if fn is None else fn(locations)
-    return jnp.tensordot(weights, fx, axes=(0, 0))
+    return jnp.tensordot(weights, fx, axes=(0, 0), precision=PRECISION)
 
 
 def particle_mean(weights, locations):
-    return jnp.tensordot(weights, locations, axes=(0, 0))
+    return jnp.tensordot(weights, locations, axes=(0, 0),
+                         precision=PRECISION)
 
 
 def particle_covariance_mtx(weights, locations):
@@ -183,11 +186,12 @@ def particle_covariance_mtx(weights, locations):
     *centered* two-pass form is mandatory in f32: the textbook
     E[xxᵀ] − μμᵀ cancellation produces negative variances once the
     posterior is ~1e-3 of the mean scale. The contraction is still a
-    matmul (MXU) and the particle-axis reduction still psums under GSPMD.
+    matmul and the particle-axis reduction still psums under GSPMD.
     """
     mu = particle_mean(weights, locations)
     centered = locations - mu[None, :]
-    cov = jnp.einsum("i,id,ie->de", weights, centered, centered)
+    cov = jnp.einsum("i,id,ie->de", weights, centered, centered,
+                     precision=PRECISION)
     return 0.5 * (cov + cov.T)
 
 
@@ -196,7 +200,8 @@ def weighted_moments(log_w, locations):
     w = jnp.exp(normalize_log_weights(log_w)[0])
     mu = particle_mean(w, locations)
     centered = locations - mu[None, :]
-    cov = jnp.einsum("i,id,ie->de", w, centered, centered)
+    cov = jnp.einsum("i,id,ie->de", w, centered, centered,
+                     precision=PRECISION)
     return mu, 0.5 * (cov + cov.T)
 
 
@@ -207,13 +212,14 @@ def weighted_moments(log_w, locations):
 def sqrtm_psd(mat, est_error=False):
     """Symmetric PSD square root via eigh, clipping negative eigenvalues.
 
-    Reference: ``src/qinfer/utils.py — sqrtm_psd``. eigh on small D×D runs
-    fine on TPU; D is the number of model parameters (≤ ~20).
+    Reference: ``src/qinfer/utils.py — sqrtm_psd``. D is the number of
+    model parameters (≤ ~20), so the eigh is tiny.
     """
     mat = jnp.asarray(mat)
     vals, vecs = jnp.linalg.eigh(mat)
     vals_c = jnp.clip(vals, 0.0, None)
-    root = (vecs * jnp.sqrt(vals_c)[None, :]) @ vecs.T
+    root = jnp.matmul(vecs * jnp.sqrt(vals_c)[None, :], vecs.T,
+                      precision=PRECISION)
     if est_error:
         err = jnp.sum(jnp.abs(vals - vals_c))
         return root, err
@@ -345,8 +351,8 @@ def uniquify(seq):
 def join_struct_arrays(arrays):
     """Concatenate structured arrays field-wise into one structured array.
 
-    Reference: ``src/qinfer/utils.py`` struct-array join helper. The TPU
-    build uses pytrees of named arrays natively; these helpers interop
+    Reference: ``src/qinfer/utils.py`` struct-array join helper. This
+    package uses pytrees of named arrays natively; these helpers interop
     with reference-style NumPy record arrays (e.g. perf_test results).
     """
     dtype = []

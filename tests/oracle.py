@@ -1,5 +1,5 @@
 """NumPy oracle: a hand-written float64 implementation of the reference
-SMC semantics (SURVEY §3.1) used to validate the TPU engine's posterior
+SMC semantics (SURVEY §3.1) used to validate the engine's posterior
 moments within Monte-Carlo error, and to measure the CPU baseline.
 
 This mirrors qinfer's algorithm (multiplicative Bayes update, ESS
@@ -66,6 +66,84 @@ class OracleBinomialPrecession(OracleModel):
 
     def are_valid(self, params):
         return params[:, 0] >= 0
+
+
+class OracleBinomialRB(OracleModel):
+    """Binomial(n_meas) wrap of zeroth-order RB, params (p, A, B):
+    survival = A·pᵐ + B is outcome 0, the count is of outcome 1."""
+
+    def __init__(self, n_meas):
+        self.n_meas = int(n_meas)
+
+    def likelihood(self, outcome, params, exp):
+        from scipy.stats import binom
+
+        p, A, B = params[:, 0], params[:, 1], params[:, 2]
+        survival = np.clip(A * p ** exp + B, 0.0, 1.0)
+        return binom.pmf(outcome, self.n_meas, 1.0 - survival)
+
+    def are_valid(self, params):
+        p, A, B = params[:, 0], params[:, 1], params[:, 2]
+        return (p >= 0) & (p <= 1) & (A >= 0) & (B >= 0) & (A + B <= 1)
+
+
+class OracleTomography(OracleModel):
+    """Qubit Born rule on Pauli coordinates: Pr(1) = ⟨x, e⟩; the effect e
+    is the experiment."""
+
+    def likelihood(self, outcome, params, exp):
+        pr1 = np.clip(params @ np.asarray(exp, np.float64), 0.0, 1.0)
+        return pr1 if outcome == 1 else 1.0 - pr1
+
+    def are_valid(self, params):
+        # ρ ⪰ 0 for a qubit ⟺ ‖x_{1:}‖ ≤ x_0 (= 1/√2 at unit trace).
+        r = np.linalg.norm(params[:, 1:], axis=1)
+        return r <= params[:, 0] + 1e-6
+
+
+def weighted_update(log_w, log_l):
+    """float64 Bayes update of a log-weight vector: (normalized log-weights,
+    log-evidence, ESS)."""
+    lw = np.asarray(log_w, np.float64) + np.asarray(log_l, np.float64)
+    m = lw.max()
+    log_norm = m + np.log(np.exp(lw - m).sum())
+    lw = lw - log_norm
+    return lw, log_norm, 1.0 / np.sum(np.exp(2.0 * lw))
+
+
+def bayes_risk_two_outcome(w, locs, pr1, q=None):
+    """float64 Bayes risk Σ_o Pr(o|e)·tr[Q·Cov_post(o, e)] of a weighted
+    cloud for a two-outcome model with Pr(1 | particle n, candidate e) =
+    pr1[n, e]. Returns (E,)."""
+    w = np.asarray(w, np.float64)
+    locs = np.asarray(locs, np.float64)
+    pr1 = np.asarray(pr1, np.float64)
+    q = np.ones(locs.shape[1]) if q is None else np.asarray(q, np.float64)
+    risk = np.zeros(pr1.shape[1])
+    for like in (1.0 - pr1, pr1):
+        wl = w[:, None] * like  # (N, E)
+        marg = wl.sum(axis=0)  # (E,)
+        post = wl / np.maximum(marg, 1e-300)
+        mean = post.T @ locs  # (E, D)
+        var = post.T @ locs ** 2 - mean ** 2
+        risk += marg * (np.clip(var, 0.0, None) @ q)
+    return risk
+
+
+def information_gain_two_outcome(w, pr1):
+    """float64 mutual information I(outcome; params | e) for a two-outcome
+    model: H[Σ_n w_n L(o|n, e)] − Σ_n w_n H[L(·|n, e)]. Returns (E,)."""
+    from scipy.special import xlogy
+
+    w = np.asarray(w, np.float64)
+    pr1 = np.asarray(pr1, np.float64)
+    h_marg = np.zeros(pr1.shape[1])
+    h_cond = np.zeros(pr1.shape[1])
+    for like in (1.0 - pr1, pr1):
+        marg = w @ like
+        h_marg -= xlogy(marg, marg)
+        h_cond -= w @ xlogy(like, like)
+    return h_marg - h_cond
 
 
 class OracleSMC:

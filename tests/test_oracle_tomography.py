@@ -69,7 +69,7 @@ def test_qubit_tomography_matches_oracle():
         oracle.model.effect = e
         oracle.update(o, None)
 
-    # TPU engine on the identical record.
+    # The engine on the identical record.
     model = TomographyModel(basis)
     u = qi.SMCUpdater(model, 5000, prior, seed=5)
     for e, o in record:

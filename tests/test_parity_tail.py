@@ -75,7 +75,7 @@ class _OracleRB(OracleModel):
 
 
 def test_rb_posterior_matches_oracle():
-    """BASELINE accuracy gate, config 3: TPU engine vs float64 oracle on
+    """BASELINE accuracy gate, config 3: the engine vs float64 oracle on
     the same RB record — posterior moments agree within joint MC error."""
     true_p, A, B = 0.96, 0.45, 0.5
     ms = np.array([1, 2, 4, 8, 16, 32, 64, 128, 192, 256])
@@ -104,7 +104,7 @@ def test_rb_posterior_matches_oracle():
         oracle.model.m = m_len
         oracle.update(k1, m_len)
 
-    # TPU engine on the identical record.
+    # The engine on the identical record.
     model = qi.BinomialModel(qi.RandomizedBenchmarkingModel())
     prior = qi.PostselectedDistribution(
         qi.UniformDistribution([[0.8, 1.0], [0.3, 0.6], [0.3, 0.6]]),

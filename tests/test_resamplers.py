@@ -117,17 +117,6 @@ def test_custom_kernel(key):
     np.testing.assert_allclose(new, 0.0, atol=1e-6)
 
 
-def test_exact_int_cumsum_matches_flat(key):
-    from qinfer_tpu.resamplers import exact_int_cumsum
-
-    rng = np.random.default_rng(11)
-    for n in (7, 2000, 16384, 16385, 100_000):
-        q = jnp.asarray(rng.integers(0, 2000, n), jnp.int32)
-        np.testing.assert_array_equal(
-            np.asarray(exact_int_cumsum(q)), np.cumsum(np.asarray(q))
-        )
-
-
 def test_segment_starts_sorted_and_counts(key):
     """The int32-CDF starts are sorted by construction and each particle's
     stratum count matches its weight to quantization accuracy."""

@@ -1,5 +1,5 @@
-"""Round-3 verdict/advice items: streaming EIG/risk equality, canonicalize
-trace-awareness, fused-kernel guards (see VERDICT.md round 2)."""
+"""Round-3 review items: streaming EIG/risk equality, canonicalize
+trace-awareness."""
 
 import jax
 import jax.numpy as jnp

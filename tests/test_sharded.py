@@ -1,6 +1,6 @@
 """Multi-device sharding tests on the 8-virtual-device CPU mesh.
 
-SURVEY §5.8: the TPU build's distributed backend. Covers GSPMD sharding of
+SURVEY §5.8: the distributed backend. Covers GSPMD sharding of
 the jitted step and the explicit shard_map step with distributed
 systematic resampling.
 """
@@ -18,6 +18,7 @@ from qinfer_tpu.parallel import (
     sharded_sample,
 )
 from qinfer_tpu.smc import SMCConfig, init_smc_state, smc_update_step
+from zoo import zoo_cases, zoo_expparams
 
 N_DEV = 8
 N = 64 * N_DEV
@@ -186,6 +187,44 @@ def test_gspmd_forced_resample_moments(mesh):
     )
 
 
+def test_state_sharding_places_the_bank(mesh):
+    """shard_state puts each particle leaf over all devices, the rest
+    replicated."""
+    from qinfer_tpu.parallel import state_sharding
+
+    _, _, state = _setup()
+    sharded = shard_state(state, mesh)
+    for name, leaf in sharded._asdict().items():
+        assert leaf.sharding == getattr(state_sharding(mesh), name)
+    devs = {s.device for s in sharded.particle_locations.addressable_shards}
+    assert len(devs) == N_DEV
+
+
+@pytest.mark.parametrize("thresh", [-1.0, 1.1], ids=["update", "resample"])
+def test_updater_keeps_sharded_bank_sharded(mesh, thresh):
+    """A sharded bank stays sharded through SMCUpdater.update and
+    batch_update (plain GSPMD may return it replicated), with the same
+    numbers as the one-device updater."""
+    model = qi.SimplePrecessionModel()
+    prior = qi.UniformDistribution([0.0, 1.0])
+    u1 = qi.SMCUpdater(model, N, prior, resample_thresh=thresh, seed=3)
+    uk = qi.SMCUpdater(model, N, prior, resample_thresh=thresh, seed=3)
+    uk.state = shard_state(uk.state, mesh)
+    ep = {"t": jnp.array([2.0], jnp.float32)}
+    for u in (u1, uk):
+        u.update(jnp.int32(1), ep)
+        u.batch_update(jnp.array([0, 1]),
+                       {"t": jnp.array([3.0, 5.0], jnp.float32)})
+    spec = uk.state.particle_locations.sharding.spec
+    assert spec == jax.sharding.PartitionSpec("particles")
+    assert uk.state.particle_log_weights.sharding.spec == spec
+    np.testing.assert_allclose(np.asarray(uk.particle_log_weights),
+                               np.asarray(u1.particle_log_weights),
+                               atol=1e-5)
+    np.testing.assert_allclose(np.asarray(uk.particle_locations),
+                               np.asarray(u1.particle_locations), atol=2e-5)
+
+
 def test_distributed_pick_statistics(mesh):
     """Distributed systematic pick reproduces the weight distribution."""
     from functools import partial
@@ -279,125 +318,29 @@ def test_ring_migration_matches_all_gather(mesh):
     np.testing.assert_array_equal(a, b)
 
 
-def test_shard_map_fused_step_matches_xla_step(mesh):
-    """The per-shard fused Pallas update + psum-merged streaming stats
-    must reproduce the XLA shard_map step (evidence, weights, ESS) —
-    the round-2 verdict's multi-chip fast-path item."""
-    model, prior, state = _setup(seed=21)
+@pytest.mark.parametrize("case", zoo_cases(), ids=lambda c: c[0])
+def test_sharded_step_matches_single_device(mesh, case):
+    """The explicit-collective step of every zoo model reproduces the
+    one-device update (pmax/psum logsumexp vs the fused XLA reductions):
+    evidence, log-weights and ESS."""
+    _, model, prior, outcome, ep, _ = case
+    state = init_smc_state(jax.random.PRNGKey(21), model, N, prior)
     resampler = qi.LiuWestResampler()
-    ep = {"t": jnp.array([4.0], jnp.float32)}
-
-    cfg_x = SMCConfig(resample_thresh=-1.0, use_fused_update=False)
-    cfg_f = SMCConfig(resample_thresh=-1.0, use_fused_update=True)
-    step_x = make_sharded_update_step(mesh, model, resampler, cfg_x)
-    step_f = make_sharded_update_step(mesh, model, resampler, cfg_f)
-
-    st_x, ln_x = jax.jit(step_x)(shard_state(state, mesh), jnp.int32(1), ep)
-    st_f, ln_f = jax.jit(step_f)(shard_state(state, mesh), jnp.int32(1), ep)
-    np.testing.assert_allclose(float(ln_x), float(ln_f), atol=2e-4)
-    np.testing.assert_allclose(
-        np.asarray(st_x.particle_log_weights),
-        np.asarray(st_f.particle_log_weights), atol=2e-3,
-    )
-    np.testing.assert_allclose(
-        float(st_x.min_n_ess), float(st_f.min_n_ess), rtol=1e-3
-    )
-
-
-def test_shard_map_fused_step_binomial(mesh):
-    """The binomial fused tile's return_stats path under shard_map (the
-    combinator overrides fused_update separately from the base class)."""
-    model = qi.BinomialModel(qi.SimplePrecessionModel())
-    prior = qi.UniformDistribution([0.0, 1.0])
-    state = init_smc_state(jax.random.PRNGKey(31), model, N, prior)
-    resampler = qi.LiuWestResampler()
-    ep = {"t": jnp.array([2.0], jnp.float32),
-          "n_meas": jnp.array([40], jnp.int32)}
-
-    cfg_x = SMCConfig(resample_thresh=-1.0, use_fused_update=False)
-    cfg_f = SMCConfig(resample_thresh=-1.0, use_fused_update=True)
-    st_x, ln_x = jax.jit(make_sharded_update_step(
-        mesh, model, resampler, cfg_x
-    ))(shard_state(state, mesh), jnp.int32(13), ep)
-    st_f, ln_f = jax.jit(make_sharded_update_step(
-        mesh, model, resampler, cfg_f
-    ))(shard_state(state, mesh), jnp.int32(13), ep)
-    np.testing.assert_allclose(float(ln_x), float(ln_f), atol=2e-4)
-    np.testing.assert_allclose(
-        np.asarray(st_x.particle_log_weights),
-        np.asarray(st_f.particle_log_weights), atol=2e-3,
-    )
-
-
-def test_shard_map_fused_step_with_resample(mesh):
-    """Fused sharded step through a forced resample: fires, uniform
-    weights, moments preserved, particles valid."""
-    model, prior, state = _setup(seed=22)
-    skew = jnp.linspace(0.0, 3.0, N)
-    state = state._replace(
-        particle_log_weights=skew - jax.scipy.special.logsumexp(skew)
-    )
-    resampler = qi.LiuWestResampler(use_expand_kernel=True)
-    config = SMCConfig(resample_thresh=1.1, zero_weight_policy="reset",
-                       use_fused_update=True)
-    step = make_sharded_update_step(mesh, model, resampler, config)
-    ep = {"t": jnp.array([0.5], jnp.float32)}
-
-    from qinfer_tpu.utils import weighted_moments
-
-    ref_state, _ = jax.jit(smc_update_step)(
-        model, qi.LiuWestResampler(), SMCConfig(resample_thresh=-1.0),
-        state, jnp.int32(0), ep,
-    )
-    mu_ref, cov_ref = weighted_moments(
-        ref_state.particle_log_weights, ref_state.particle_locations
-    )
-
-    sh_state, _ = jax.jit(step)(shard_state(state, mesh), jnp.int32(0), ep)
-    assert int(sh_state.n_resamples) == 1
-    np.testing.assert_allclose(
-        np.asarray(sh_state.particle_log_weights), -np.log(N), atol=1e-5
-    )
-    locs = np.asarray(sh_state.particle_locations)
-    np.testing.assert_allclose(
-        locs.mean(0), np.asarray(mu_ref),
-        atol=4 * float(jnp.sqrt(cov_ref[0, 0] / N)) + 0.01,
-    )
-    assert np.asarray(model.are_models_valid(jnp.asarray(locs))).all()
-
-
-def test_distributed_pick_expand_kernel_matches_scatter(mesh):
-    """The per-shard expand-kernel pick must produce EXACTLY the scatter
-    path's picks (same starts math, same u0)."""
-    from functools import partial
-
-    from jax import shard_map
-    from jax.sharding import PartitionSpec as P
-
-    from qinfer_tpu.parallel.sharded_smc import distributed_systematic_pick
-
-    rng = np.random.default_rng(8)
-    w = rng.random(N) ** 2
-    w /= w.sum()
-    log_w = jnp.log(jnp.asarray(w, jnp.float32))
-    locs = jnp.asarray(rng.standard_normal((N, 2)), jnp.float32)
-    key = jax.random.PRNGKey(13)
-
-    def run(use_expand):
-        return jax.jit(
-            shard_map(
-                partial(distributed_systematic_pick, axis_name="particles",
-                        use_expand_kernel=use_expand),
-                mesh=make_particle_mesh(N_DEV),
-                in_specs=(P(), P("particles"), P("particles")),
-                out_specs=P("particles"),
-                check_vma=False,
-            )
-        )(key, log_w, locs)
-
-    a = np.asarray(run(False))
-    b = np.asarray(run(True))
-    np.testing.assert_array_equal(a, b)
+    config = SMCConfig(resample_thresh=-1.0, zero_weight_policy="reset")
+    ep = zoo_expparams(ep)
+    st_1, ln_1 = jax.jit(smc_update_step)(
+        model, resampler, config, state, jnp.int32(outcome), ep)
+    st_k, ln_k = jax.jit(make_sharded_update_step(
+        mesh, model, resampler, config))(
+        shard_state(state, mesh), jnp.int32(outcome), ep)
+    np.testing.assert_allclose(float(ln_k), float(ln_1), atol=2e-5)
+    lw_1 = np.asarray(st_1.particle_log_weights)
+    lw_k = np.asarray(st_k.particle_log_weights)
+    mass = lw_1 > lw_1.max() - 20.0
+    np.testing.assert_allclose(lw_k[mass], lw_1[mass], atol=1e-4)
+    np.testing.assert_allclose(np.exp(lw_k), np.exp(lw_1), atol=1e-7)
+    np.testing.assert_allclose(float(st_k.min_n_ess), float(st_1.min_n_ess),
+                               rtol=1e-4)
 
 
 def test_migration_auto_threshold(mesh, monkeypatch):
@@ -441,7 +384,6 @@ def test_direct_view_parallelized_model(mesh):
         underlying_model=model, mesh=mesh, serial_threshold=100
     )
     assert par.n_modelparams == 1
-    assert not par.fused_update_supported
     rng = np.random.default_rng(2)
     ep = {"t": jnp.array([3.0], jnp.float32)}
     outcomes = jnp.array([0, 1])

@@ -89,7 +89,7 @@ def test_gaussian_conjugate(key):
 
 
 def test_precession_matches_oracle():
-    """TPU engine vs float64 reference-semantics oracle on the quickstart
+    """The engine vs float64 reference-semantics oracle on the quickstart
     workload (BASELINE config 1) — posterior moments within MC error."""
     true_omega = 0.73
     n_particles = 4000
@@ -109,7 +109,7 @@ def test_precession_matches_oracle():
     for t, o in zip(ts, outcomes):
         oracle.update(o, t)
 
-    # TPU engine run.
+    # The engine run.
     model = qi.SimplePrecessionModel()
     prior = qi.UniformDistribution([0.0, 1.0])
     u = qi.SMCUpdater(model, n_particles, prior, seed=21)

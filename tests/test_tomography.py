@@ -237,8 +237,8 @@ def test_diffusive_tomography(key):
 
 @pytest.mark.parametrize("n_qubits", [1, 2])
 def test_charpoly_psd_matches_eigvalsh(n_qubits, key):
-    """The Newton-identities PSD test (no eigendecomposition — the TPU
-    resampler hot path) must agree with eigvalsh on valid states, clearly
+    """The Newton-identities PSD test (no eigendecomposition — the
+    resampler's postselection path) must agree with eigvalsh on valid states, clearly
     invalid coordinates, and near-boundary (nearly pure) states."""
     from qinfer_tpu.tomography.models import _psd_via_charpoly
 
